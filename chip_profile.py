@@ -1,0 +1,100 @@
+"""Where the time of one warm Class-1 solve goes on the card.
+
+    python3 chip_profile.py [--size 500] [--outer 10] [--out TABLE.txt]
+
+Runs ``otamg_torch``'s ``solve_class1`` (AMG inner solver, F-cycle,
+fuse_deep, f64) on ``random_class1(PRNGKey(0), size, size)`` once to warm
+up, then profiles the first ``--outer`` outer iterations of the same
+solve under ``torch.profiler`` (a whole solve launches ~1e6 kernels,
+whose trace takes the profiler minutes to digest).  Prints one JSON line:
+the window's wall seconds, the device's busy time (the union of kernel
+intervals), its idle share, the kernel launches and host reads per outer
+iteration, and the operators with the most device time.  With ``--out``
+the profiler's full table is written to that file.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import sys
+import time
+
+import torch
+
+
+def busy_us(events) -> float:
+    """Union of the device kernel intervals, in microseconds."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--size", type=int, default=500)
+    ap.add_argument("--outer", type=int, default=10)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    from otamg_torch.config import AMGOptions, APDOptions, Cycle, InnerSolver
+    from otamg_torch.device import fetch
+    from otamg_torch.opt import solve_class1
+    from otamg_torch.ot import random_class1
+    from otamg_torch.random import PRNGKey
+
+    opts = APDOptions(inner_solver=InnerSolver.AMG,
+                      amg=AMGOptions(cycle=Cycle.F, fuse_deep=True))
+    prob = random_class1(PRNGKey(0), args.size, args.size, device="cuda")
+    solve_class1(prob, opts)
+    window = dataclasses.replace(opts, maxit=args.outer)
+    torch.cuda.synchronize()
+    reads0 = fetch.reads
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = solve_class1(prob, window)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    reads = fetch.reads - reads0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_us(kernels) / 1e6
+    averages = prof.key_averages()
+    top = sorted(averages, key=lambda a: -a.self_device_time_total)
+    if args.out:
+        out = pathlib.Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(averages.table(sort_by="self_device_time_total",
+                                      row_limit=40))
+    print(json.dumps({
+        "size": args.size, "card": torch.cuda.get_device_name(0),
+        "outer_iters_profiled": res.iters,
+        "wall_s": wall, "device_busy_s": busy,
+        "device_idle_share": 1.0 - busy / wall,
+        "kernel_launches": len(kernels),
+        "launches_per_outer_iter": len(kernels) / res.iters,
+        "host_reads_per_outer_iter": reads / res.iters,
+        "top_ops_self_device_ms": [
+            [a.key, a.self_device_time_total / 1e3, a.count]
+            for a in top[:12]]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

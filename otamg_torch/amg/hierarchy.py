@@ -1,0 +1,731 @@
+"""AMG hierarchy: setup, cycles and the classical solve loop (port of
+``otamg/amg/hierarchy.py``).
+
+* **Level 1 is structured.**  The fine operator of the Newton system is
+  ``Ae = diag(g) - E/tk`` on the bipartite node set (q-side then p-side),
+  with ``E`` the ``(m, n)`` masked-dense edge-weight matrix; matvecs, the
+  block Gauss-Seidel smoother and the level-1 ideal interpolation are
+  GEMVs/GEMMs on ``E``.  The generic hierarchy instead starts from a dense
+  level or, for a sparse operator, a :class:`CSRLevel` whose matvecs run
+  the ELL SpMV kernel.
+* **Coarse levels are capacity-padded dense.**  Each level has a static
+  capacity with an activity mask, as in the JAX package, so the two
+  packages' level arrays compare shape for shape.
+* **One hierarchy for all graph components**, with per-component
+  kernel-projected smoothing through segment sums over component labels.
+* **Cycles run off a visit tape**, the unrolled V/W/F recursion, executed
+  here by a Python loop; ``fuse_deep`` replaces the tape below level 0 by
+  one dense matrix per hierarchy.
+
+The mixed-precision (``deflated``) cycle, the sharded and
+aggregation levels and ``setup_hierarchy_sparse`` are later slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Sequence
+
+import torch
+
+from otamg_torch import random as jr
+from otamg_torch.amg.graph import mis_dense, segment_sum, strength_dense
+from otamg_torch.config import AMGOptions, Cycle
+from otamg_torch.device import fetch
+from otamg_torch.krylov.pcg import pcg
+from otamg_torch.sparse.kernels import ell_spmv
+
+
+class BipartiteLevel(NamedTuple):
+    """Finest level: ``A = diag(g) - E/tk`` over n q-side + m p-side nodes."""
+
+    E: torch.Tensor        # (m, n) nonnegative edge weights
+    g: torch.Tensor        # (n + m,) diagonal
+    inv_tk: torch.Tensor   # () 1/tk
+    W: torch.Tensor        # (n, m) ideal-interpolation block to level 2
+    labels: torch.Tensor   # (n + m,) int64 component labels
+    nsp: torch.Tensor      # (n + m,) near-singular-component mask
+    Axi: torch.Tensor      # (n + m,) A @ 1 (kernel-projected smoothing)
+    xx: torch.Tensor       # (n + m,) per-node xi^T A xi of its component
+    Exi1: torch.Tensor     # (m,) E @ nsp[:n], carried by the fused smoother
+    Etxi2: torch.Tensor    # (n,) E^T @ nsp[n:]
+
+
+class DenseLevel(NamedTuple):
+    A: torch.Tensor        # (c, c) padded dense operator (identity padding)
+    active: torch.Tensor   # (c,) bool
+    P: torch.Tensor        # (c_prev, c) prolongation from previous level
+    labels: torch.Tensor   # (c,) component labels (original fine node ids)
+    nsp: torch.Tensor      # (c,) bool
+    Axi: torch.Tensor      # (c,)
+    xx: torch.Tensor       # (c,)
+    evecs: torch.Tensor    # (c, c) eigenvectors of A, coarsest level only
+    #                        ((0, 0) elsewhere)
+    einv: torch.Tensor     # (c,) filtered inverse eigenvalues: 1/lambda_i
+    #                        where lambda_i > 4 eps lambda_max, else 0 (see
+    #                        otamg.amg.hierarchy.DenseLevel for why an
+    #                        exact coarse solve is unstable)
+
+
+class CSRLevel(NamedTuple):
+    """Sparse fine level of the generic hierarchy: the solve-phase
+    matvecs run the ELL SpMV kernel, setup densifies once."""
+
+    ell_cols: torch.Tensor  # (N, row_cap) int32 padded column indices
+    ell_vals: torch.Tensor  # (N, row_cap) padded values
+    dg: torch.Tensor        # (N,) diagonal of A
+    labels: torch.Tensor    # (N,) component labels
+    nsp: torch.Tensor       # (N,) near-singular mask
+    Axi: torch.Tensor       # (N,)
+    xx: torch.Tensor        # (N,)
+
+
+def _lvl_size(lv) -> int:
+    """Node count of a level object of any type."""
+    if isinstance(lv, BipartiteLevel):
+        return lv.g.shape[0]
+    if isinstance(lv, CSRLevel):
+        return lv.dg.shape[0]
+    return lv.A.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Level operations
+# ---------------------------------------------------------------------------
+
+
+def csr_matvec(lv: CSRLevel, v: torch.Tensor) -> torch.Tensor:
+    """Fine-level SpMV; on a card every call launches the ELL kernel,
+    whatever the dtype or size."""
+    return ell_spmv(lv.ell_cols, lv.ell_vals, v)
+
+
+def csr_smooth_apply(lv: CSRLevel, r: torch.Tensor,
+                     transpose: bool) -> torch.Tensor:
+    """Weighted Jacobi, as :func:`dense_smooth_apply`."""
+    del transpose
+    return 0.5 * r / lv.dg
+
+
+def bip_matvec(lv: BipartiteLevel, v: torch.Tensor) -> torch.Tensor:
+    n = lv.W.shape[0]
+    v1, v2 = v[:n], v[n:]
+    out1 = lv.g[:n] * v1 - lv.inv_tk * (lv.E.T @ v2)
+    out2 = lv.g[n:] * v2 - lv.inv_tk * (lv.E @ v1)
+    return torch.cat([out1, out2])
+
+
+def bip_smooth_apply(lv: BipartiteLevel, r: torch.Tensor,
+                     transpose: bool) -> torch.Tensor:
+    """Block Gauss-Seidel ``R^{-1}`` (or its transpose) for the bigraph
+    split (``Class_AMG.m:48-59``)."""
+    n = lv.W.shape[0]
+    r1, r2 = r[:n], r[n:]
+    g1, g2 = lv.g[:n], lv.g[n:]
+    if not transpose:
+        e1 = r1 / g1
+        e2 = (r2 + lv.inv_tk * (lv.E @ e1)) / g2
+    else:
+        e2 = r2 / g2
+        e1 = (r1 + lv.inv_tk * (lv.E.T @ e2)) / g1
+    return torch.cat([e1, e2])
+
+
+def dense_matvec(lv: DenseLevel, v: torch.Tensor) -> torch.Tensor:
+    return lv.A @ v
+
+
+def dense_smooth_apply(lv: DenseLevel, r: torch.Tensor,
+                       transpose: bool) -> torch.Tensor:
+    """Weighted Jacobi ``R^{-1} = 0.5 diag(A)^{-1}``
+    (``Class_AMG.m:72,84``; symmetric)."""
+    del transpose
+    return 0.5 * r / torch.diagonal(lv.A)
+
+
+def _level0_ops(lv):
+    """(matvec, smooth_apply) pair for a level object of any type."""
+    if isinstance(lv, BipartiteLevel):
+        return bip_matvec, bip_smooth_apply
+    if isinstance(lv, CSRLevel):
+        return csr_matvec, csr_smooth_apply
+    return dense_matvec, dense_smooth_apply
+
+
+def _projected_smooth(matvec, smooth_apply, lv, e, r, smoth_it: int,
+                      transpose: bool, nseg: int):
+    """``smoth_it`` sweeps of per-component kernel-projected smoothing
+    (generalizes ``MG_Vcycle.m:14-24``): each sweep corrects the
+    residual's mean over every near-singular component exactly along the
+    component's constant vector; other components get the plain sweep
+    ``e += R (r - A e)``."""
+    xi = lv.nsp.to(r.dtype)
+    safe_xx = torch.where(torch.abs(lv.xx) > 0, lv.xx, 1.0)
+    for _ in range(smoth_it):
+        g = r - matvec(lv, e)
+        xig = segment_sum(g * xi, lv.labels, nseg)
+        coef = torch.where(lv.nsp, xig[lv.labels] / safe_xx, 0.0)
+        e = e + (xi * coef + smooth_apply(lv, g - lv.Axi * coef, transpose))
+    return e
+
+
+def _projected_smooth_bip(lv: BipartiteLevel, e, r, smoth_it: int,
+                          transpose: bool, nseg: int, e_is_zero: bool):
+    """Fused form of :func:`_projected_smooth` for the bipartite fine
+    level, the solver's hot loop.  The edge products ``u = E e1`` and
+    ``w = E^T e2`` are carried across sweeps and updated from each
+    sweep's corrections, so a sweep does exactly the two directed
+    products its Gauss-Seidel order forces.  ``e_is_zero`` marks the
+    pre-smoothing entry, where the carried products start at zero."""
+    n = lv.W.shape[0]
+    m = lv.E.shape[0]
+    itk = lv.inv_tk
+    g1d, g2d = lv.g[:n], lv.g[n:]
+    r1, r2 = r[:n], r[n:]
+    lab1, lab2 = lv.labels[:n], lv.labels[n:]
+    nsp1, nsp2 = lv.nsp[:n], lv.nsp[n:]
+    xi1 = nsp1.to(r.dtype)
+    xi2 = nsp2.to(r.dtype)
+    if e_is_zero:
+        e1 = torch.zeros(n, dtype=r.dtype, device=r.device)
+        e2 = torch.zeros(m, dtype=r.dtype, device=r.device)
+        u = torch.zeros(m, dtype=r.dtype, device=r.device)
+        w = torch.zeros(n, dtype=r.dtype, device=r.device)
+    else:
+        e1, e2 = e[:n], e[n:]
+        u = lv.E @ e1
+        w = lv.E.T @ e2
+    xx1, xx2 = lv.xx[:n], lv.xx[n:]
+    sxx1 = torch.where(torch.abs(xx1) > 0, xx1, 1.0)
+    sxx2 = torch.where(torch.abs(xx2) > 0, xx2, 1.0)
+    Axi1, Axi2 = lv.Axi[:n], lv.Axi[n:]
+    for _ in range(smoth_it):
+        gg1 = r1 - g1d * e1 + itk * w
+        gg2 = r2 - g2d * e2 + itk * u
+        xig = (segment_sum(gg1 * xi1, lab1, nseg)
+               + segment_sum(gg2 * xi2, lab2, nseg))
+        c1 = torch.where(nsp1, xig[lab1] / sxx1, 0.0)
+        c2 = torch.where(nsp2, xig[lab2] / sxx2, 0.0)
+        gp1 = gg1 - Axi1 * c1
+        gp2 = gg2 - Axi2 * c2
+        if not transpose:
+            d1 = gp1 / g1d
+            t = lv.E @ d1
+            d2 = (gp2 + itk * t) / g2d
+            tw = lv.E.T @ d2
+        else:
+            d2 = gp2 / g2d
+            tw = lv.E.T @ d2
+            d1 = (gp1 + itk * tw) / g1d
+            t = lv.E @ d1
+        e1 = e1 + xi1 * c1 + d1
+        e2 = e2 + xi2 * c2 + d2
+        u = u + c2 * lv.Exi1 + t
+        w = w + c1 * lv.Etxi2 + tw
+    return torch.cat([e1, e2])
+
+
+# ---------------------------------------------------------------------------
+# Setup
+# ---------------------------------------------------------------------------
+
+
+def _coarse_target(nfine: int) -> int:
+    """Reference depth rule (``Class_AMG.m:76``)."""
+    return 1 + int(math.floor(nfine ** (1.0 / 3.0)))
+
+
+def capacity_schedule(m: int, nfine: int, opts: AMGOptions) -> list[int]:
+    """Static per-level capacities of the dense levels (level 2 is exactly
+    the p-side size ``m``; deeper levels shrink by ``coarsen_ratio``)."""
+    caps = [m]
+    target = (opts.coarse_target if opts.coarse_target is not None
+              else _coarse_target(nfine))
+    while caps[-1] > target and len(caps) < opts.max_levels - 1:
+        caps.append(int(math.ceil(opts.coarsen_ratio * caps[-1])))
+    return caps
+
+
+def setup_hierarchy(E, g, inv_tk, labels, nsp, opts: AMGOptions,
+                    key: torch.Tensor, gk=None):
+    """Build the full hierarchy for ``Ae = diag(g) - E/tk``
+    (``Class_AMG.m:41-85`` with the level-1 bigraph ideal interpolation
+    of ``transfer.m:19-25``).  ``gk`` is the non-Laplacian part of the
+    diagonal, ``bk1 Q + K/tk``, from which the kernel-projection
+    quantities are built without cancellation; without it a matvec
+    evaluates them."""
+    m, n = E.shape
+    N = n + m
+    dtype = E.dtype
+    nseg = N
+    inv_tk = torch.as_tensor(inv_tk, dtype=dtype, device=E.device)
+
+    # level 1: ideal interpolation W = -Aff^{-1} Afc = diag(1/g1) E^T/tk
+    g1 = g[:n]
+    W = (E.T / g1[:, None]) * inv_tk
+    # isnsp row normalization (transfer.m:22-24), relative guard.
+    rowsum = W.sum(dim=1)
+    norm_mask = nsp[:n] & (torch.abs(rowsum) > 0.01)
+    W = torch.where(norm_mask[:, None],
+                    W / torch.where(norm_mask, rowsum, 1.0)[:, None], W)
+    # Kernel-projection validity: every nsp q-row whose component
+    # persists on the p-side must sum to 1 after normalization.
+    pcount = segment_sum(torch.ones(m, dtype=torch.int64, device=E.device),
+                         labels[n:], nseg)
+    relevant = nsp[:n] & (pcount[labels[:n]] > 0)
+    defect1 = torch.where(relevant, torch.abs(W.sum(dim=1) - 1.0),
+                          0.0).amax()
+    ok = defect1 < 0.1
+
+    # Fused-smoother projection products E @ xi, E^T @ xi.
+    xi1 = nsp[:n].to(dtype)
+    xi2 = nsp[n:].to(dtype)
+    ones = torch.ones(N, dtype=dtype, device=E.device)
+    lv1 = BipartiteLevel(E, g, inv_tk, W, labels, nsp, torch.zeros_like(ones),
+                         ones, E @ xi1, E.T @ xi2)
+    if gk is None:
+        Axi1 = bip_matvec(lv1, ones)
+        xxseg = segment_sum(Axi1, labels, nseg)
+        axi2 = None
+    else:
+        Axi1 = gk.to(dtype)
+        xxseg = segment_sum(Axi1, labels, nseg)
+        # Exact restriction of Axi through P = [W; I].
+        axi2 = W.T @ Axi1[:n] + Axi1[n:]
+    lv1 = lv1._replace(Axi=Axi1, xx=xxseg[labels])
+
+    # level 2: Galerkin P^T Ae P with P = [W; I]  (m x m dense)
+    G1W = g1[:, None] * W
+    A2 = (W.T @ G1W - inv_tk * (W.T @ E.T) - inv_tk * (E @ W)
+          + torch.diag(g[n:]))
+    A2 = 0.5 * (A2 + A2.T)
+    caps = capacity_schedule(m, N, opts)
+    dense_levels = _build_dense_chain(
+        A2, torch.ones(m, dtype=torch.bool, device=E.device), labels[n:],
+        nsp[n:], caps, opts, key, nseg, axi0=axi2, xxseg=xxseg, ok0=ok)
+    return lv1, dense_levels
+
+
+def _build_dense_chain(A0, act0, lab0, nsp0, caps, opts: AMGOptions,
+                       key: torch.Tensor, nseg: int,
+                       axi0=None, xxseg=None, ok0=True) -> tuple:
+    """Chain of padded dense levels (MIS coarsening) from ``A0`` at
+    capacity ``caps[0]``, ending with the eigendecomposed coarsest level.
+
+    With ``axi0``/``xxseg`` the kernel-projection quantities propagate
+    analytically (``Axi_{l+1} = P^T Axi_l``, ``xx`` level-invariant per
+    component).  ``ok0`` and each level's interpolation defect gate the
+    projection: once a prolongation breaks ``P 1_c = 1_f`` on a
+    persisting near-singular component, that level and all below it run
+    plain smoothing."""
+    dtype = A0.dtype
+    dev = A0.device
+    dense_levels = []
+    A_cur, act_cur, lab_cur, nsp_cur = A0, act0, lab0, nsp0
+    ok_cur = torch.as_tensor(ok0, dtype=torch.bool, device=dev)
+    axi_cur = axi0
+    P_cur = torch.zeros(0, 0, dtype=dtype, device=dev)
+    no_vec = torch.zeros(0, 0, dtype=dtype, device=dev)
+    no_val = torch.zeros(0, dtype=dtype, device=dev)
+
+    for li, cap in enumerate(caps):
+        last = li == len(caps) - 1
+        if last:
+            # Coarsest level: eigendecomposed once per hierarchy; each
+            # visit applies the spectrally filtered inverse.
+            lam, evecs = torch.linalg.eigh(A_cur)
+            factor = (4.0 if dtype == torch.float64
+                      else float(opts.coarse_cutoff_ulps))
+            cutoff = factor * torch.finfo(dtype).eps * lam.abs().amax()
+            einv = torch.where(lam > cutoff,
+                               1.0 / torch.where(lam > cutoff, lam, 1.0), 0.0)
+        else:
+            evecs, einv = no_vec, no_val
+        lvd = DenseLevel(A_cur, act_cur, P_cur, lab_cur, nsp_cur & ok_cur,
+                         torch.zeros(cap, dtype=dtype, device=dev),
+                         torch.ones(cap, dtype=dtype, device=dev),
+                         evecs, einv)
+        if axi_cur is None:
+            xi = act_cur.to(dtype)
+            Axi = dense_matvec(lvd, xi)
+            xx = segment_sum(xi * Axi, lab_cur, nseg)
+            lvd = lvd._replace(Axi=Axi, xx=xx[lab_cur])
+        else:
+            lvd = lvd._replace(Axi=axi_cur, xx=xxseg[lab_cur])
+        dense_levels.append(lvd)
+        if last:
+            break
+        key, sub = jr.split(key)
+        (A_cur, act_cur, lab_cur, nsp_cur, P_cur, defect) = _coarsen_dense(
+            A_cur, act_cur, lab_cur, nsp_cur, caps[li + 1], opts, sub, nseg)
+        ok_cur = ok_cur & (defect < 0.1)
+        if axi_cur is not None:
+            axi_cur = P_cur.T @ axi_cur
+    return tuple(dense_levels)
+
+
+def setup_hierarchy_generic(A, opts: AMGOptions, key: torch.Tensor,
+                            labels=None, nsp=None):
+    """Generic (non-bigph) hierarchy for an SPD matrix: weighted-Jacobi
+    smoothing and MIS/standard-interpolation coarsening from level 1
+    down (``Class_AMG.m:72`` + ``transfer.m:30-66``).
+
+    ``A`` is a dense ``(N, N)`` tensor or a
+    :class:`otamg_torch.sparse.CSR`.  With a CSR the one-time setup
+    densifies, but level 0 stays a :class:`CSRLevel`, so every
+    solve-phase fine matvec runs the ELL SpMV kernel.  Returns
+    ``(chain[0], chain[1:])`` for :func:`amg_solve`."""
+    from otamg_torch.sparse.containers import CSR
+
+    csr = A if isinstance(A, CSR) else None
+    if csr is not None:
+        A = csr.to_dense()
+    N = A.shape[0]
+    if labels is None:
+        labels = torch.zeros(N, dtype=torch.int64, device=A.device)
+    if nsp is None:
+        nsp = torch.zeros(N, dtype=torch.bool, device=A.device)
+    caps = [N]
+    target = (opts.coarse_target if opts.coarse_target is not None
+              else _coarse_target(N))
+    while caps[-1] > target and len(caps) < opts.max_levels:
+        caps.append(int(math.ceil(opts.coarsen_ratio * caps[-1])))
+    chain = _build_dense_chain(A, torch.ones(N, dtype=torch.bool,
+                                             device=A.device),
+                               labels, nsp, caps, opts, key, N)
+    head = chain[0]
+    if csr is not None and len(chain) > 1:
+        head = CSRLevel(csr.ell_cols, csr.ell_vals, torch.diagonal(head.A),
+                        head.labels, head.nsp, head.Axi, head.xx)
+    return head, chain[1:]
+
+
+def _coarsen_dense(A, active, labels, nsp, cap_next: int,
+                   opts: AMGOptions, key: torch.Tensor, nseg: int):
+    """One MIS + standard-interpolation + Galerkin coarsening step
+    (``transfer.m:41-66``) on a padded dense level.  Also returns the
+    interpolation defect: the worst deviation from 1 of a near-singular
+    row's prolongation sum, over rows whose component keeps a C node.
+    A defect >= 0.1 rebuilds the level with ideal interpolation (one
+    host read per level)."""
+    c = A.shape[0]
+    dtype = A.dtype
+    dev = A.device
+    As = strength_dense(A, active) >= opts.theta
+    isC, isF = mis_dense(As, active, key)
+
+    dinv = 1.0 / torch.diagonal(A)
+    fc_mask = isF[:, None] & isC[None, :]
+    # Compaction: C columns in index order; overflow beyond the static
+    # capacity is demoted (rare: MIS targets N/2).
+    perm = torch.argsort((~isC).to(torch.uint8), stable=True)
+    colidx = perm[:cap_next]
+    keep = torch.arange(cap_next, device=dev) < isC.sum()
+    labels_next = labels[colidx]
+    nsp_next = nsp[colidx] & keep
+    kept_flag = torch.zeros(c, dtype=torch.bool, device=dev)
+    kept_flag[colidx] = keep
+    ccount = segment_sum(kept_flag.to(torch.int64), labels, nseg)
+    relevant = active & nsp & (ccount[labels] > 0) & ~kept_flag
+
+    def ideal_W():
+        # Ideal interpolation W = -Aff^{-1} Afc on the F subsystem.
+        ff = isF[:, None] & isF[None, :]
+        Aff = torch.where(ff, A, 0.0) + torch.diag((~isF).to(dtype))
+        Afc = torch.where(fc_mask, A, 0.0)
+        W = -torch.linalg.solve(Aff, Afc)
+        return torch.where(isF[:, None], W, 0.0) * isC[None, :]
+
+    def standard_W():
+        # Standard interpolation; the reference's always-true guard makes
+        # the effective weight 0.5 regardless of `inter` (transfer.m:54-56).
+        strong_ff = As & isF[:, None] & isF[None, :]
+        AFFs = torch.where(strong_ff, A, 0.0) + torch.diag(
+            torch.where(isF, torch.diagonal(A), 0.0))
+        W1 = torch.where(fc_mask, -A * dinv[:, None], 0.0)
+        W2 = -dinv[:, None] * (AFFs @ W1)
+        return W1 + 0.5 * W2
+
+    def finish(W):
+        """Normalization -> truncated P -> Galerkin -> defect."""
+        rowsum = W.sum(dim=1)
+        norm_mask = isF & nsp & (torch.abs(rowsum) > 0.01)
+        W = torch.where(norm_mask[:, None],
+                        W / torch.where(norm_mask, rowsum, 1.0)[:, None], W)
+        P_full = W + torch.diag(isC.to(dtype))
+        P = P_full[:, colidx] * keep[None, :].to(dtype)
+        Ac = P.T @ (A @ P)
+        Ac = 0.5 * (Ac + Ac.T)
+        Ac = Ac + torch.diag((~keep).to(dtype))
+        defect = torch.where(relevant, torch.abs(P.sum(dim=1) - 1.0),
+                             0.0).amax()
+        return Ac, P, defect
+
+    if opts.inter >= 2:
+        Ac, P, defect = finish(ideal_W())
+    else:
+        Ac, P, defect = finish(standard_W())
+        # Defect repair: when standard interpolation breaks P 1_c = 1_f
+        # on a persisting near-singular component, rebuild the level with
+        # ideal interpolation.
+        if fetch(defect >= 0.1):
+            Ac, P, defect = finish(ideal_W())
+    return Ac, keep, labels_next, nsp_next, P, defect
+
+
+# ---------------------------------------------------------------------------
+# Cycles: a visit tape run by a Python loop
+# ---------------------------------------------------------------------------
+
+
+def _gen_tape(num_levels: int, gamma: int) -> list[tuple[str, int]]:
+    """Unroll the cycle recursion into an (op, level) sequence.
+    ``gamma``: 1 = V, 2 = W, 3 = F (W's revisit structure with the second
+    child visit run as a V-cycle)."""
+    ops: list[tuple[str, int]] = []
+    last = num_levels - 1
+
+    def visit(l: int, g: int) -> None:
+        if l == last:
+            ops.append(("coarse", l))
+            return
+        ops.append(("pre", l))
+        ops.append(("down", l))
+        visit(l + 1, g)
+        if g >= 2 and l + 1 != last:
+            # warm-started revisit (MG_Wcycle.m:28-30); F demotes it to V.
+            visit(l + 1, 1 if g == 3 else g)
+        ops.append(("up", l))
+
+    visit(0, gamma)
+    return ops
+
+
+def _coarse_solve(lv, r, coarse_retol: float, coarse_maxit: int,
+                  coarse_direct: bool):
+    """Coarsest-level solve: the spectrally filtered direct solve from the
+    setup-time eigendecomposition, or Jacobi-PCG (``MG_Vcycle.m:43``)."""
+    if coarse_direct and isinstance(lv, DenseLevel) \
+            and lv.evecs.shape[0] > 0:
+        return lv.evecs @ (lv.einv * (lv.evecs.T @ r))
+    if isinstance(lv, BipartiteLevel):
+        dg = lv.g
+        mv = lambda v: bip_matvec(lv, v)
+    else:
+        dg = torch.diagonal(lv.A)
+        mv = lambda v: dense_matvec(lv, v)
+    return pcg(mv, r, lambda v: v / dg, retol=coarse_retol,
+               maxit=coarse_maxit).x
+
+
+def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
+               coarse_retol: float = 1e-11, coarse_maxit: int = 10_000,
+               coarse_direct: bool = True):
+    """Build ``cycle(lv1, dense_levels, r, deep_D=None) -> e`` running one
+    V/W/F cycle off the visit tape, with ``cycle.build_deep(lv1, dense,
+    dtype)`` materializing the tape below level 0 as one dense matrix
+    (``fuse_deep``)."""
+    tape = _gen_tape(num_dense + 1, gamma)
+    can_fuse = num_dense >= 2
+
+    def cycle(lv1, dense: Sequence[DenseLevel], r0: torch.Tensor,
+              deep_D: torch.Tensor | None = None):
+        levels = [lv1] + list(dense)
+        bip0 = isinstance(lv1, BipartiteLevel)
+
+        def lvl_matvec(l, v):
+            return _level0_ops(levels[l])[0](levels[l], v)
+
+        def lvl_smooth(l, e, r, transpose, e_is_zero=False):
+            if l == 0 and bip0:
+                return _projected_smooth_bip(levels[0], e, r, smoth_it,
+                                             transpose, nseg, e_is_zero)
+            mv, sm = _level0_ops(levels[l])
+            return _projected_smooth(mv, sm, levels[l], e, r, smoth_it,
+                                     transpose, nseg)
+
+        def restrict(l, rr):
+            if l == 0 and bip0:
+                n = lv1.W.shape[0]
+                return rr[n:] + lv1.W.T @ rr[:n]
+            return levels[l + 1].P.T @ rr
+
+        def prolong(l, ec):
+            if l == 0 and bip0:
+                return torch.cat([lv1.W @ ec, ec])
+            return levels[l + 1].P @ ec
+
+        es = [torch.zeros(_lvl_size(lv), dtype=r0.dtype, device=r0.device)
+              for lv in levels]
+        rs = [r0] + [None] * len(dense)
+
+        def run(kind, l):
+            if kind == "pre":
+                # Level 0 is visited once per cycle from a zeroed e.
+                es[l] = lvl_smooth(l, es[l], rs[l], False,
+                                   e_is_zero=(l == 0))
+            elif kind == "down":
+                rs[l + 1] = restrict(l, rs[l] - lvl_matvec(l, es[l]))
+                es[l + 1] = torch.zeros_like(es[l + 1])
+            elif kind == "up":
+                es[l] = lvl_smooth(l, es[l] + prolong(l, es[l + 1]), rs[l],
+                                   True)
+            else:
+                es[l] = _coarse_solve(levels[l], rs[l], coarse_retol,
+                                      coarse_maxit, coarse_direct)
+
+        if deep_D is not None:
+            # The whole deep tape is the precomputed linear map deep_D.
+            run("pre", 0)
+            run("down", 0)
+            es[1] = deep_D @ rs[1]
+            run("up", 0)
+        else:
+            for kind, l in tape:
+                run(kind, l)
+        return es[0]
+
+    def _deep_algebraic(dense: Sequence[DenseLevel], dtype):
+        """Bottom-up algebraic build of ``D`` (``e1 = D @ r1``): a
+        projected Jacobi sweep is ``e' = G1 e + B1 r``, a smoothing phase
+        its ``smoth_it``-fold composite, a visit the two-grid composition
+        ``C = Gp (Hp + P D_next P^T (I - A Hp)) + Hp``, a warm-started
+        W/F revisit ``D = C + C' (I - A C)``, and the coarse solve
+        ``evecs diag(einv) evecs^T``."""
+        phase_cache: dict = {}
+        node_cache: dict = {}
+
+        def phase_ops(idx):
+            if idx in phase_cache:
+                return phase_cache[idx]
+            lv = dense[idx]
+            A = lv.A.to(dtype)
+            I = torch.eye(A.shape[0], dtype=dtype, device=A.device)
+            K = 0.5 / torch.diagonal(A)
+            xi = lv.nsp.to(dtype)
+            xmat = ((lv.labels[:, None] == lv.labels[None, :]).to(dtype)
+                    * xi[None, :])
+            safe_xx = torch.where(torch.abs(lv.xx) > 0, lv.xx,
+                                  1.0).to(dtype)
+            Wm = (xi / safe_xx)[:, None] * xmat
+            M = xi[:, None] * Wm + K[:, None] * (
+                I - lv.Axi.to(dtype)[:, None] * Wm)
+            G1 = I - M @ A
+            Gp, Hp = I, torch.zeros_like(I)
+            for _ in range(smoth_it):
+                Gp = G1 @ Gp
+                Hp = G1 @ Hp + M
+            phase_cache[idx] = (Gp, Hp)
+            return Gp, Hp
+
+        last = len(dense) - 1
+
+        def visit(idx, g):
+            key = ("v", idx, g)
+            if key not in node_cache:
+                Gp, Hp = phase_ops(idx)
+                Dn = deep(idx + 1, g)
+                A = dense[idx].A.to(dtype)
+                P = dense[idx + 1].P.to(dtype)
+                I = torch.eye(A.shape[0], dtype=dtype, device=A.device)
+                T = P.T @ (I - A @ Hp)
+                node_cache[key] = Gp @ (Hp + P @ (Dn @ T)) + Hp
+            return node_cache[key]
+
+        def deep(idx, g):
+            key = ("d", idx, g)
+            if key not in node_cache:
+                if idx == last:
+                    lv = dense[idx]
+                    D = ((lv.evecs * lv.einv[None, :]) @ lv.evecs.T).to(dtype)
+                else:
+                    D = visit(idx, g)
+                    if g >= 2:
+                        C2 = visit(idx, 1 if g == 3 else g)
+                        A = dense[idx].A.to(dtype)
+                        I = torch.eye(A.shape[0], dtype=dtype,
+                                      device=A.device)
+                        D = D + C2 @ (I - A @ D)
+                node_cache[key] = D
+            return node_cache[key]
+
+        return deep(0, gamma)
+
+    def build_deep(lv1, dense: Sequence[DenseLevel], dtype):
+        """The deep sub-tape as a ``(cap1, cap1)`` matrix, or None when
+        fusing cannot pay (fewer than 2 dense levels) or the coarse solve
+        is PCG; the full tape then runs (the same linear map)."""
+        del lv1
+        if not can_fuse or not coarse_direct \
+                or dense[-1].evecs.shape[0] == 0:
+            return None
+        return _deep_algebraic(dense, dtype)
+
+    cycle.build_deep = build_deep
+    return cycle
+
+
+# ---------------------------------------------------------------------------
+# Classical solve loop (Class_AMG.m:86-109)
+# ---------------------------------------------------------------------------
+
+
+class AMGSolveResult(NamedTuple):
+    x: torch.Tensor
+    iters: int
+    rel_res: torch.Tensor
+
+
+def amg_solve(lv1, dense: Sequence[DenseLevel], b: torch.Tensor,
+              guess: torch.Tensor, opts: AMGOptions) -> AMGSolveResult:
+    """Stationary iteration ``x += cycle(b - A x)`` with relative-residual
+    stopping and the divergence guard (``Class_AMG.m:95-106``): a cycle
+    whose residual grows, or is not finite, is reverted and ends the
+    loop.  One host read per iteration."""
+    nseg = b.shape[0]
+    gamma = {Cycle.V: 1, Cycle.W: 2, Cycle.F: 3}[opts.cycle]
+    cycle = make_cycle(len(dense), opts.smoth, gamma, nseg,
+                       opts.coarse_pcg.retol, opts.coarse_pcg.maxit,
+                       opts.coarse_solver == "direct")
+    deep_D = (cycle.build_deep(lv1, dense, b.dtype)
+              if opts.fuse_deep else None)
+    mv0 = _level0_ops(lv1)[0]
+
+    r = b - mv0(lv1, guess)
+    res0 = torch.linalg.vector_norm(r)
+    safe0 = torch.where(res0 == 0, 1.0, res0)
+    retol_eff = max(opts.retol, 4 * torch.finfo(b.dtype).eps)
+    x = guess
+    rel = torch.ones((), dtype=b.dtype, device=b.device)
+    it = 0
+    done = bool(fetch(res0 == 0))
+    while not done:
+        # The residual is carried: the post-update residual of one
+        # iteration is the next one's r.
+        x_new = x + cycle(lv1, dense, r, deep_D)
+        r_new = b - mv0(lv1, x_new)
+        res = torch.linalg.vector_norm(r_new)
+        nr = torch.linalg.vector_norm(r)
+        bad = ~torch.isfinite(res)
+        grew = bad | (res > nr)
+        x = torch.where(grew, x, x_new)
+        r = torch.where(grew, r, r_new)
+        rel = torch.where(grew, rel, res / safe0)
+        rho = torch.where(bad, 2.0, res / nr)
+        it += 1
+        done = (bool(fetch((rel <= retol_eff) | (rho > 1.0)))
+                or it >= opts.maxit)
+    return AMGSolveResult(x, it, rel)
+
+
+def amg_solve_matrix(A, b: torch.Tensor, opts: AMGOptions = AMGOptions(),
+                     guess=None, key=None) -> AMGSolveResult:
+    """Generic AMG solve of ``A x = b`` for an SPD dense tensor or a
+    :class:`otamg_torch.sparse.CSR` (``Class_AMG.m`` with ``bigph=0``).
+    With a CSR every fine-level matvec of the solve is the ELL SpMV."""
+    if key is None:
+        key = jr.PRNGKey(0)
+    if guess is None:
+        guess = torch.zeros_like(b)
+    lv0, rest = setup_hierarchy_generic(A, opts, key)
+    return amg_solve(lv0, rest, b, guess, opts)

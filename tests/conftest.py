@@ -28,6 +28,10 @@ def pytest_configure(config):
         "markers",
         "slow: multi-minute end-to-end fixture runs (deselect with "
         "-m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (skips without one); chip_smoke.py "
+        "runs the same checks on the card")
 
 
 REF = "/root/reference"
