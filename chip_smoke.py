@@ -6,10 +6,15 @@ Phases, each printing one JSON line with its numbers and seconds:
 
 1. device   — the card's name and power limit (from ``nvidia-smi``);
 2. build    — compile every CUDA kernel of ``otamg_torch/csrc``;
-3. kernel   — ``ell_spmv`` against ``ell_spmv_plain`` on the card at
-   three shapes, f32 and f64, with its time (median of 20 calls, CUDA
-   events), its bound, the plain version's time and one
-   ``torch.sparse_csr_tensor @ x`` call as a yardstick;
+3. kernel   — ``ell_spmv`` against ``ell_spmv_plain`` on the card, f32
+   and f64, at shapes that reach every variant (2-D and 3-D stencils,
+   cap 1, random rows of 33 and 200, a row-sliced misaligned view)
+   and at edge sizes, with per shape: the variant, ``ms`` (CUDA events
+   around 100 back-to-back calls, over 100), ``device_ms`` (the same
+   calls captured in a CUDA graph and replayed), ``host_us`` (the
+   wrapper's host time per call), the bound and the share of it reached,
+   the plain version's time and a ``torch.sparse_csr_tensor @ x`` call's
+   as a yardstick;
 4. sparse   — ``amg_solve_matrix`` on the 128x128 grid Laplacian + 0.01 I
    as an ELL ``CSR`` (the path that runs the kernel), with its launches,
    checked against the same solve through the plain SpMV;
@@ -25,6 +30,7 @@ without CUDA the script exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -33,7 +39,8 @@ import time
 import numpy as np
 import torch
 
-REPS = 20
+REPS = 100    # launches per timed run
+ROUNDS = 5    # timed runs; the median is kept
 # Device memory bandwidth (bytes/s) and non-tensor-core FP64/FP32 peaks
 # (FLOP/s) from NVIDIA's data sheets, by the name nvidia-smi reports.
 _HBM = (("H200", 4.8e12), ("NVL", 3.9e12), ("PCIe", 2.0e12), ("H100", 3.35e12))
@@ -52,18 +59,64 @@ def hbm_rate(name: str) -> float:
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` calls, CUDA events."""
+    """Milliseconds per call of ``fn()``: CUDA events around ``reps``
+    back-to-back calls, divided by ``reps``; median of ``ROUNDS`` runs.
+    Where the host enqueues slower than the device runs, this is the
+    host's rate."""
     for _ in range(3):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(ROUNDS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+def graph_ms(fn, reps: int = REPS) -> float:
+    """Device milliseconds per call of ``fn()`` alone: ``reps`` calls
+    captured in one CUDA graph, replayed between two events, divided by
+    ``reps``; median of ``ROUNDS`` replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(ROUNDS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return float(np.median(times))
+
+
+def host_us(fn, reps: int = REPS) -> float:
+    """Host microseconds per call of ``fn()``: ``time.perf_counter`` over
+    ``reps`` calls with no synchronisation; median of ``ROUNDS`` runs."""
+    times = []
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
     return float(np.median(times))
 
 
@@ -91,6 +144,64 @@ def grid_csr(nx: int, shift: float, dtype, dev):
     return CSR((N, N), indptr, cols.contiguous(), vals.contiguous())
 
 
+def stencil_ell(nx: int, dim: int, points: int, dtype, dev):
+    """ELL arrays of the ``points``-point Laplacian on an ``nx``^``dim``
+    grid (5 or 9 points in 2-D, 7 or 27 in 3-D), in natural order; a
+    neighbour outside the grid keeps its slot with column -1 and value
+    -1, which the kernel must drop."""
+    offs = [o for o in itertools.product((-1, 0, 1), repeat=dim)
+            if points == 3 ** dim or sum(map(abs, o)) <= 1]
+    k = torch.arange(nx ** dim, device=dev)
+    idx = [(k // nx ** (dim - 1 - a)) % nx for a in range(dim)]
+    cols, vals = [], []
+    for o in offs:
+        inside = torch.ones_like(k, dtype=torch.bool)
+        c = torch.zeros_like(k)
+        for a, d in enumerate(o):
+            ia = idx[a] + d
+            inside &= (ia >= 0) & (ia < nx)
+            c = c * nx + ia
+        cols.append(torch.where(inside, c, -1))
+        vals.append(torch.full_like(k, len(offs) - 1 if not any(o) else -1,
+                                    dtype=dtype))
+    return (torch.stack(cols, 1).to(torch.int32).contiguous(),
+            torch.stack(vals, 1).contiguous())
+
+
+def random_ell(N: int, cap: int, dtype, dev, gen):
+    """Random columns in [-64, N + 64) (out of range on both sides) and
+    normal values."""
+    cols = torch.randint(-64, N + 64, (N, cap), generator=gen, device=dev,
+                         dtype=torch.int32)
+    vals = torch.randn(N, cap, generator=gen, device=dev, dtype=dtype)
+    if not ((cols < 0).any() and (cols >= N).any()):
+        raise AssertionError("random columns hold no out-of-range slot")
+    return cols, vals
+
+
+def kernel_shapes(dtype, dev, gen):
+    """(name, cols, vals, x) of every shape the kernel phase checks; they
+    reach every variant of ``plan``."""
+    def vec(n):
+        return torch.randn(n, generator=gen, device=dev, dtype=dtype)
+
+    for nx in (128, 1024):
+        A = grid_csr(nx, 0.01, dtype, dev)
+        yield f"grid{nx}", A.ell_cols, A.ell_vals, vec(nx * nx)
+    # Row-sliced views: at cap 5 their pointers sit off 16-byte bounds.
+    yield "grid1024_view1", A.ell_cols[1:], A.ell_vals[1:], vec(nx * nx)
+    N = 1024 * 1024
+    yield ("diag1m", torch.arange(N, device=dev, dtype=torch.int32)[:, None],
+           torch.randn(N, 1, generator=gen, device=dev, dtype=dtype), vec(N))
+    yield "grid1024_9pt", *stencil_ell(1024, 2, 9, dtype, dev), vec(N)
+    for points in (7, 27):
+        cols, vals = stencil_ell(64, 3, points, dtype, dev)
+        yield f"stencil{points}_64", cols, vals, vec(64 ** 3)
+    for cap in (33, 200):
+        yield f"random{cap}", *random_ell(65536, cap, dtype, dev, gen), \
+            vec(65536)
+
+
 def library_csr(cols, vals, n):
     """The same operator as a torch sparse CSR tensor (out-of-range
     slots dropped), for the yardstick call only."""
@@ -102,13 +213,23 @@ def library_csr(cols, vals, n):
                                    check_invariants=False)
 
 
-def check_kernel(name, card, cols, vals, x, rtol):
-    """``ell_spmv`` against its plain version on the same inputs; the
-    error is held against the row sums of absolute terms."""
-    from otamg_torch.sparse import ell_spmv, ell_spmv_plain
+def spmv_bound(card, cols, vals, x):
+    """(bound ms, bound_by, bytes): each input read once, y written once,
+    2 flops per slot."""
+    N, cap = cols.shape
+    s = vals.element_size()
+    nbytes = N * cap * (4 + s) + N * s + x.shape[0] * s
+    t_bytes = nbytes / hbm_rate(card)
+    t_ops = 2 * N * cap / _PEAK[vals.dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
-    y = ell_spmv(cols, vals, x)
-    torch.cuda.synchronize()
+
+def held_to_plain(name, y, cols, vals, x, rtol):
+    """Max abs error of ``y`` against the plain version; raises where a
+    row is off by more than ``rtol`` of its sum of absolute terms."""
+    from otamg_torch.sparse import ell_spmv_plain
+
     yp = ell_spmv_plain(cols, vals, x)
     scale = ell_spmv_plain(cols, vals.abs(), x.abs())
     err = (y - yp).abs()
@@ -116,44 +237,61 @@ def check_kernel(name, card, cols, vals, x, rtol):
     if bad or not torch.isfinite(y).all():
         raise AssertionError(f"ell_spmv {name}: {bad} rows differ from the "
                              f"plain version beyond rtol {rtol}")
-    N, cap = cols.shape
-    n = x.shape[0]
-    s = vals.element_size()
-    nbytes = N * cap * (4 + s) + N * s + n * s
-    flops = 2 * N * cap
-    bound_ms = max(nbytes / hbm_rate(card), flops / _PEAK[vals.dtype]) * 1e3
-    lib = library_csr(cols, vals, n)
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_kernel(name, card, cols, vals, x, rtol):
+    """``ell_spmv`` against its plain version on the same inputs, then
+    its times beside the plain version's and the library call's."""
+    from otamg_torch.sparse import ell_spmv, ell_spmv_plain
+    from otamg_torch.sparse.kernels import VARIANTS, plan
+
+    y = ell_spmv(cols, vals, x)
+    torch.cuda.synchronize()
+    max_err = held_to_plain(name, y, cols, vals, x, rtol)
+    bound_ms, bound_by, nbytes = spmv_bound(card, cols, vals, x)
+    lib = library_csr(cols, vals, x.shape[0])
+    ms = cuda_ms(lambda: ell_spmv(cols, vals, x))
     row = dict(
-        shape=name, N=N, cap=cap, n=n, dtype=str(vals.dtype).split(".")[-1],
-        rtol=rtol, max_abs_err=float(err.max()),
-        ms=cuda_ms(lambda: ell_spmv(cols, vals, x)),
+        shape=name, N=cols.shape[0], cap=cols.shape[1], n=x.shape[0],
+        dtype=str(vals.dtype).split(".")[-1],
+        variant=VARIANTS[plan(cols.shape[1])],
+        rtol=rtol, max_abs_err=max_err, ms=ms,
+        device_ms=graph_ms(lambda: ell_spmv(cols, vals, x)),
+        host_us=host_us(lambda: ell_spmv(cols, vals, x)),
         plain_ms=cuda_ms(lambda: ell_spmv_plain(cols, vals, x)),
         library_ms=cuda_ms(lambda: lib @ x), bound_ms=bound_ms,
-        bound_by=("bytes" if nbytes / hbm_rate(card)
-                  >= flops / _PEAK[vals.dtype] else "operations"),
-        bytes=nbytes)
+        bound_by=bound_by, share_of_bound=bound_ms / ms, bytes=nbytes)
     emit("kernel", **row)
     return row
 
 
 def phase_kernels(card, dev):
+    from otamg_torch.sparse import ell_spmv
+    from otamg_torch.sparse.kernels import VARIANTS, plan
+
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
     for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        for nx in (128, 1024):
-            A = grid_csr(nx, 0.01, dtype, dev)
-            x = torch.randn(nx * nx, generator=gen, device=dev, dtype=dtype)
-            rows[(nx * nx, 5, dtype)] = check_kernel(
-                f"grid{nx}", card, A.ell_cols, A.ell_vals, x, rtol)
-        N, cap = 65536, 200
-        cols = torch.randint(-64, N + 64, (N, cap), generator=gen,
-                             device=dev, dtype=torch.int32)
-        vals = torch.randn(N, cap, generator=gen, device=dev, dtype=dtype)
-        x = torch.randn(N, generator=gen, device=dev, dtype=dtype)
-        if not ((cols < 0).any() and (cols >= N).any()):
-            raise AssertionError("random columns hold no out-of-range slot")
-        rows[(N, cap, dtype)] = check_kernel("random200", card, cols, vals,
-                                             x, rtol)
+        for name, cols, vals, x in kernel_shapes(dtype, dev, gen):
+            rows[(name, dtype)] = check_kernel(name, card, cols, vals, x,
+                                               rtol)
+    # Every variant plan() can pick was run above.
+    ran = {r["variant"] for r in rows.values()}
+    reachable = {VARIANTS[plan(cap)] for cap in range(257)}
+    if reachable - ran:
+        raise AssertionError(f"variants never checked: {reachable - ran}")
+    # Edges: a row count that is no multiple of any tile, cap 0, no rows.
+    for N, cap in ((1, 1), (4099, 3), (333, 0), (0, 5), (777, 65)):
+        n = max(N, 1)
+        cols = torch.randint(-2, n + 2, (N, cap), generator=gen, device=dev,
+                             dtype=torch.int32)
+        vals = torch.randn(N, cap, generator=gen, device=dev,
+                           dtype=torch.float64)
+        x = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+        y = ell_spmv(cols, vals, x)
+        torch.cuda.synchronize()
+        held_to_plain(f"edge{N}x{cap}", y, cols, vals, x, 1e-12)
     return rows
 
 
@@ -311,7 +449,7 @@ def main() -> int:
     launches = phase_sparse_amg(dev)
     phase_class1(dev)
 
-    main_row = rows[(128 * 128, 5, torch.float64)]
+    main_row = rows[("grid128", torch.float64)]
     print(json.dumps({"kernels": [{
         "name": "ell_spmv", "route": "cuda",
         "source": "otamg_torch/csrc/ell_spmv.cu",
@@ -319,7 +457,9 @@ def main() -> int:
         "launches": launches, "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}))
+        "library_ms": main_row["library_ms"],
+        "device_ms": main_row["device_ms"], "host_us": main_row["host_us"],
+        "variant": main_row["variant"]}]}))
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

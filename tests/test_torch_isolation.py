@@ -1,6 +1,6 @@
-"""The port stands alone: no module of otamg_torch, and neither
-chip_smoke.py nor chip_profile.py, imports jax or anything of the JAX
-package otamg."""
+"""The port stands alone: no module of otamg_torch, and none of
+chip_smoke.py, chip_profile.py and ell_spmv_sweep.py, imports jax or
+anything of the JAX package otamg."""
 
 import ast
 import os
@@ -16,7 +16,8 @@ PKG = ROOT / "otamg_torch"
 
 def _port_files():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "chip_profile.py"]
+                                        ROOT / "chip_profile.py",
+                                        ROOT / "ell_spmv_sweep.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -12,6 +12,7 @@ from otamg.sparse import CSR as JCSR
 from otamg.sparse.kernels import ell_spmv as j_ell_spmv
 from otamg.sparse.kernels import ell_spmv_xla
 from otamg_torch.sparse import CSR, ell_spmv, ell_spmv_plain
+from otamg_torch.sparse.kernels import VARIANTS, plan
 
 
 def assert_rowsum_close(got, want, cols, vals, x, rtol, what):
@@ -127,18 +128,64 @@ def test_negative_columns_follow_the_pallas_kernel():
     np.testing.assert_array_equal(got.numpy(), kernel_rule)
 
 
+# (rows, n, cap, block_rows): the kernel's cap boundaries, rows that are
+# no multiple of the Pallas block.
+CAPS = [(300, 257, 1, 64), (203, 140, 7, 32), (150, 160, 16, 64),
+        (130, 300, 27, 64), (77, 200, 33, 32)]
+
+
+@pytest.mark.parametrize("shape", CAPS, ids=lambda s: f"{s[0]}x{s[2]}")
+def test_plain_vs_pallas_interpret_caps(shape):
+    """The plain version against the Pallas kernel in interpret mode at
+    the caps where the CUDA kernel changes variant, with columns out of
+    range on both sides."""
+    nr, n, cap, br = shape
+    rng = np.random.default_rng(cap)
+    cols = rng.integers(-3, n + 3, (nr, cap)).astype(np.int32)
+    vals = rng.standard_normal((nr, cap)).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    assert (cols < 0).any() and (cols >= n).any()
+    want = j_ell_spmv(jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(x),
+                      block_rows=br, interpret=True)
+    got = ell_spmv(torch.as_tensor(cols), torch.as_tensor(vals),
+                   torch.as_tensor(x))
+    assert_rowsum_close(got.numpy(), want, cols, vals, x, 1e-6,
+                        f"cap {cap} vs Pallas f32")
+
+
+@pytest.mark.parametrize("cap,name", [
+    (0, "slab1"), (1, "slab1"), (5, "slab1"), (9, "slab1"), (16, "slab1"),
+    (17, "slab4"), (27, "slab4"), (32, "slab4"), (33, "warp"),
+    (200, "warp")])
+def test_plan_boundaries(cap, name):
+    assert VARIANTS[plan(cap)] == name
+
+
+# (rows, cap, row-sliced view): one case per kernel variant, the
+# misaligned views of a 5-point stencil, and a ragged last slab.
+CUDA_CASES = [(4096, 1, False), (4099, 5, False), (4096, 5, True),
+              (4096, 7, False), (4096, 16, False), (4096, 27, False),
+              (4096, 27, True), (4096, 33, False), (4096, 33, True),
+              (4096, 200, False)]
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain():
+@pytest.mark.parametrize("rows,cap,view", CUDA_CASES,
+                         ids=lambda v: str(v))
+def test_cuda_kernel_matches_plain(rows, cap, view):
     """The CUDA kernel against its plain version on the card, f32 and
-    f64, with out-of-range columns of both signs."""
+    f64, with out-of-range columns of both signs; a view ``[1:]`` starts
+    ``cap`` elements into its allocation."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check")
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(cap)
     for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        cols = torch.randint(-8, 1032, (4096, 37), generator=gen,
+        cols = torch.randint(-8, 1032, (rows + view, cap), generator=gen,
                              device="cuda", dtype=torch.int32)
-        vals = torch.randn(4096, 37, generator=gen, device="cuda",
+        vals = torch.randn(rows + view, cap, generator=gen, device="cuda",
                            dtype=dtype)
+        if view:
+            cols, vals = cols[1:], vals[1:]
         x = torch.randn(1024, generator=gen, device="cuda", dtype=dtype)
         before = ell_spmv.launches
         y = ell_spmv(cols, vals, x)
