@@ -2,13 +2,29 @@
 port's runs on the card.
 
     JAX_PLATFORMS=cpu python cpu_reference.py --size 500
+    JAX_PLATFORMS=cpu python cpu_reference.py --class2 --size 500 [--port]
+                                              [--newton-parity] [--polish]
+                                              [--verbose]
     JAX_PLATFORMS=cpu python cpu_reference.py --grid 64
 
 ``--size``: solves ``random_class1(PRNGKey(0), size, size)`` with the
 options ``chip_smoke.py`` gives the port (AMG inner solver, F-cycle,
 fuse_deep, f64) and prints one JSON line: converged, outer iterations,
 fail_count, the final objective, the total inner iterations and the wall
-seconds on this CPU (compilation included).
+seconds on this CPU (compilation included).  With ``--class2`` it solves
+``random_class2(PRNGKey(0), size, size)`` with ``chip_smoke.py``'s
+Class-2 options (AMG inner solver, ``maxit=40, smoth=10``, F-cycle,
+fuse_deep, ``ssn_tol1=1e-10``, no feasibility polish) and adds whether
+the polish was used, the SsN steps of every outer iteration and the
+objective after each; ``--port`` runs the port's ``solve_class2`` on the
+CPU in place of the JAX package's, ``--newton-parity`` runs the port's
+solve and hands every one of its Newton systems to the JAX package's
+POT-AMG solver as well (the same inputs and key), adding the number of
+systems, those whose inner iterations differ and the largest relative
+difference of the two solutions; ``--verbose`` prints the solve's
+per-iteration lines (KKT residuals, objective, SsN steps, inner
+iterations) before the JSON line; ``--polish`` turns the feasibility
+polish on.
 
 ``--grid``: the sparse-AMG solve ``chip_smoke.py`` runs on the card
 (``amg_solve_matrix`` on the grid x grid 5-point Laplacian + 0.01 I as an
@@ -20,6 +36,7 @@ JSON line with each one's iterations and relative residual.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -30,10 +47,19 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=500)
     ap.add_argument("--grid", type=int, default=0)
+    ap.add_argument("--class2", action="store_true")
+    ap.add_argument("--port", action="store_true")
+    ap.add_argument("--newton-parity", action="store_true")
+    ap.add_argument("--polish", action="store_true")
+    ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args()
     jax.config.update("jax_enable_x64", True)
     if args.grid:
         grid_reference(args.grid)
+        return
+    if args.class2:
+        class2_reference(args.size, args.port or args.newton_parity,
+                         args.newton_parity, args.polish, args.verbose)
         return
     from otamg.config import AMGOptions, APDOptions, Cycle, InnerSolver
     from otamg.opt import solve_class1
@@ -50,6 +76,78 @@ def main() -> None:
         "fail_count": res.fail_count, "fxk": float(res.fxk[-1]),
         "inner_total": res.inner_total,
         "seconds": time.perf_counter() - t0}))
+
+
+def class2_reference(size: int, port: bool, parity: bool, polish: bool,
+                     verbose: bool) -> None:
+    solver, extra = None, {}
+    if port:
+        import chip_smoke
+        from otamg_torch.opt import solve_class2
+        from otamg_torch.ot import random_class2
+        from otamg_torch.random import PRNGKey
+
+        prob = random_class2(PRNGKey(0), size, size, device="cpu")
+        opts = chip_smoke.class2_opts()
+        if parity:
+            solver, extra = newton_parity(prob, opts)
+    else:
+        from otamg.config import AMGOptions, APDOptions, Cycle, InnerSolver
+        from otamg.opt.apd2 import solve_class2
+        from otamg.ot import random_class2
+
+        prob = random_class2(jax.random.PRNGKey(0), size, size)
+        opts = APDOptions(inner_solver=InnerSolver.AMG, ssn_tol1=1e-10,
+                          amg=AMGOptions(maxit=40, smoth=10, cycle=Cycle.F,
+                                         fuse_deep=True), feas_polish=False)
+    opts = dataclasses.replace(opts, feas_polish=polish)
+    t0 = time.perf_counter()
+    res = solve_class2(prob, opts, solver=solver, verbose=verbose)
+    print(json.dumps({
+        **extra, "class": 2, "size": size,
+        "backend": "port-cpu" if port else jax.default_backend(),
+        "converged": res.converged, "iters": res.iters,
+        "fail_count": res.fail_count, "fxk": float(res.fxk[-1]),
+        "polished": res.polished, "inner_total": res.inner_total,
+        "seconds": time.perf_counter() - t0,
+        "ssn_itnum": [int(v) for v in res.ssn_itnum],
+        "fxk_trajectory": [float(v) for v in res.fxk]}))
+
+
+def newton_parity(prob, opts):
+    """A Newton solver for the port's ``solve_class2`` that solves each
+    system with the port's POT-AMG solver and, on the same inputs, with
+    the JAX package's; returns it and the dict it fills."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from otamg.config import AMGOptions, Cycle
+    from otamg.hybrid.pot import make_pot_amg_solver as jax_pot
+    from otamg_torch.hybrid.pot import make_pot_amg_solver as port_pot
+
+    a = opts.amg
+    jsolve = jax.jit(jax_pot(
+        *(jnp.asarray(t.numpy()) for t in (prob.p, prob.q, prob.Phi)),
+        AMGOptions(maxit=a.maxit, smoth=a.smoth, cycle=Cycle[a.cycle.name],
+                   fuse_deep=a.fuse_deep)))
+    tsolve = port_pot(prob.p, prob.q, prob.Phi, a)
+    out = {"systems": 0, "iters_differ": [], "zeta_max_rel_diff": 0.0}
+
+    def solve(S, tvec, bk1, tk, rhs, key):
+        rt = tsolve(S, tvec, bk1, tk, rhs, key)
+        rj = jsolve(*(jnp.asarray(t.numpy()) for t in (S, tvec, bk1, tk,
+                                                       rhs)),
+                    jnp.asarray(key.numpy().astype(np.uint32)))
+        zj = np.asarray(rj.zeta)
+        d = float(np.abs(rt.zeta.numpy() - zj).max() / np.abs(zj).max())
+        out["zeta_max_rel_diff"] = max(out["zeta_max_rel_diff"], d)
+        if rt.iters != int(rj.iters):
+            out["iters_differ"].append(
+                [out["systems"], rt.iters, int(rj.iters)])
+        out["systems"] += 1
+        return rt
+
+    return solve, out
 
 
 def grid_reference(nx: int) -> None:

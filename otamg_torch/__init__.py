@@ -22,3 +22,26 @@ from otamg_torch.config import (  # noqa: F401
     PCGOptions,
     WarmupOptions,
 )
+from otamg_torch.ot import operators, problems  # noqa: F401
+from otamg_torch.ot.problems import (  # noqa: F401
+    Class1Problem,
+    Class2Problem,
+    assignment_problem,
+    capacitated_problem,
+    load_class1_mat,
+    load_class2_mat,
+    random_class1,
+    random_class2,
+)
+from otamg_torch.opt.admm import warmup_class1, warmup_class2  # noqa: F401
+from otamg_torch.opt.apd import (SolveResult, make_class1_step,  # noqa: F401
+                                 solve_class1)
+from otamg_torch.opt.apd2 import (Solve2Result, make_class2_step,  # noqa: F401
+                                  solve_class2)
+from otamg_torch.opt.newton import (NewtonSolveResult,  # noqa: F401
+                                    make_pcg_solver)
+from otamg_torch.hybrid.solver import (  # noqa: F401
+    make_aug_pcg_solver,
+    make_direct_solver,
+    make_hybrid_amg_solver,
+)

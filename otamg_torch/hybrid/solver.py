@@ -1,4 +1,4 @@
-"""Hybrid AMG Newton-system solver (port of the f64 path of
+"""Hybrid Newton-system solvers (port of the f64 path of
 ``otamg/hybrid/solver.py``).
 
 The SsN Jacobian system ``He zeta = z`` (``He = bk1 I + (T + H0)/tk``) is
@@ -9,12 +9,15 @@ graph Laplacian of the bipartite active-set graph plus a diagonal.  All
 graph components are solved at once in one masked hierarchy whose
 projections act per component through the labels.
 
-Not in this slice: the mixed-precision branch of ``build_he_solver``
-(``solve_dtype``), the two-grid variant, ``make_aug_pcg_solver`` and
-``make_direct_solver``.
+The same transform serves the nullspace-augmented PCG
+(``make_aug_pcg_solver``); ``make_direct_solver`` assembles the Jacobian
+densely.  Not in this slice: the mixed-precision branch of
+``build_he_solver`` (``solve_dtype``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -22,8 +25,10 @@ from otamg_torch import random as jr
 from otamg_torch.amg.graph import connected_components_bipartite, segment_sum
 from otamg_torch.amg.hierarchy import (amg_solve, setup_hierarchy,
                                        setup_hierarchy_generic)
-from otamg_torch.config import AMGOptions
+from otamg_torch.config import AMGOptions, PCGOptions
+from otamg_torch.krylov.pcg import pcg
 from otamg_torch.opt.newton import NewtonSolveResult, NewtonSolver
+from otamg_torch.ot import operators as op
 
 
 def _transform(S, tvec, bk1, tk, rhs, p, q):
@@ -66,15 +71,26 @@ def _a0diag_hi(S, p, q):
     return torch.cat([q2 * (S.T @ p2), p2 * (S @ q2)])
 
 
-def make_hybrid_amg_solver(p: torch.Tensor, q: torch.Tensor,
-                           opts: AMGOptions,
-                           solve_dtype=None) -> NewtonSolver:
-    """Newton solver through the hybrid AMG path (``inner_solver=4``),
-    in the problem's precision."""
+def _check_solve_dtype(solve_dtype) -> None:
     if solve_dtype is not None:
         raise NotImplementedError(
             "solve_dtype (the mixed-precision hierarchy with f64 "
             "refinement) is not ported yet: ROADMAP.md Queue 1 item 11")
+
+
+def make_hybrid_amg_solver(p: torch.Tensor, q: torch.Tensor,
+                           opts: AMGOptions, twogrid: bool = False,
+                           solve_dtype=None) -> NewtonSolver:
+    """Newton solver through the hybrid AMG path (``inner_solver=4``),
+    in the problem's precision.  ``twogrid=True`` is the two-level
+    variant of ``Hybrid_twogrid.m``: one coarse level solved by
+    Jacobi-PCG capped at 100 iterations (``twogrid_bigph.m:98-99``),
+    deliberately inexact."""
+    _check_solve_dtype(solve_dtype)
+    if twogrid:
+        opts = dataclasses.replace(
+            opts, max_levels=2, coarse_solver="pcg",
+            coarse_pcg=PCGOptions(retol=1e-11, maxit=100))
 
     def solve(S, tvec, bk1, tk, rhs, key) -> NewtonSolveResult:
         k_setup, k_solve = jr.split(key)
@@ -118,3 +134,84 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key):
         return q0 * r.x, r.iters, r.rel_res
 
     return he_solve, ncomp, last
+
+
+def make_aug_pcg_solver(p: torch.Tensor, q: torch.Tensor,
+                        opts: PCGOptions) -> NewtonSolver:
+    """Nullspace-augmented PCG (``aug_PCG.m``, ``inner_solver=3``) on the
+    bordered system ``[[Y^T QK Y, Y^T QK], [QK Y, Ae]]``, ``Y`` the
+    component indicator matrix: matrix-free through segment sums over
+    the component labels, the coarse unknowns carried at their
+    component-root positions of an N-padded vector (identity on the
+    other positions)."""
+    n = q.shape[0]
+
+    def solve(S, tvec, bk1, tk, rhs, key=None) -> NewtonSolveResult:
+        del key
+        E, g, kdiag, f, q0 = _transform(S, tvec, bk1, tk, rhs, p, q)
+        N = g.shape[0]
+        labels, _, ncomp, _ = _component_info(E, kdiag)
+        roots = labels == torch.arange(N, device=labels.device)
+        qk = bk1 * torch.cat([q * q, p * p]) + kdiag / tk  # bk1 Q + K/tk
+        inv_tk = 1.0 / tk
+
+        def ae_mv(v):
+            v1, v2 = v[:n], v[n:]
+            o1 = g[:n] * v1 - inv_tk * (E.T @ v2)
+            o2 = g[n:] * v2 - inv_tk * (E @ v1)
+            return torch.cat([o1, o2])
+
+        def aug_mv(x):
+            U, u = x[:N], x[N:]
+            Yu = U[labels]
+            top = segment_sum(qk * (Yu + u), labels, N)
+            top = torch.where(roots, top, U)
+            return torch.cat([top, qk * Yu + ae_mv(u)])
+
+        diag_aug = torch.cat([torch.where(roots, segment_sum(qk, labels, N),
+                                          1.0), g])
+        aug_f = torch.cat([torch.where(roots, segment_sum(f, labels, N),
+                                       0.0), f])
+        r = pcg(aug_mv, aug_f, lambda v: v / diag_aug,
+                retol=opts.retol, maxit=opts.maxit)
+        U, u = r.x[:N], r.x[N:]
+        zero = torch.zeros((), dtype=torch.int64, device=rhs.device)
+        return NewtonSolveResult(q0 * (U[labels] + u), r.iters, r.res,
+                                 ncomp, zero)
+
+    return solve
+
+
+def dense_asat(S: torch.Tensor, p: torch.Tensor,
+               q: torch.Tensor) -> torch.Tensor:
+    """``H0 = A diag(s) A^T`` assembled as an ``(n + m, n + m)`` matrix
+    (``ASAt.m``)."""
+    d1, d2 = op.asat_diags(S, p, q)
+    off = (q[:, None] * S.T) * p[None, :]   # diag(q) Y^T diag(p), (n, m)
+    return torch.cat([torch.cat([torch.diag(d1), off], 1),
+                      torch.cat([off.T, torch.diag(d2)], 1)])
+
+
+def spd_solve(J: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """``J^{-1} rhs`` through a Cholesky factorization (what
+    ``jax.scipy.linalg.solve(..., assume_a="pos")`` does)."""
+    L = torch.linalg.cholesky(J)
+    return torch.cholesky_solve(rhs[:, None], L)[:, 0]
+
+
+def make_direct_solver(p: torch.Tensor, q: torch.Tensor) -> NewtonSolver:
+    """Dense direct solve of ``Jk zeta = rhs`` (``inner_solver=1``,
+    ``Class1/APD_SsN_Class1.m:143-145``): materializes the (n+m)^2
+    Jacobian; an oracle for small systems."""
+    N = p.shape[0] + q.shape[0]
+
+    def solve(S, tvec, bk1, tk, rhs, key=None) -> NewtonSolveResult:
+        del key
+        I = torch.eye(N, dtype=S.dtype, device=S.device)
+        Jk = bk1 * I + (torch.diag(tvec) + dense_asat(S, p, q)) / tk
+        zero = torch.zeros((), dtype=torch.int64, device=rhs.device)
+        return NewtonSolveResult(spd_solve(Jk, rhs), 1,
+                                 torch.zeros((), dtype=S.dtype,
+                                             device=S.device), zero, zero)
+
+    return solve

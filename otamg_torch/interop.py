@@ -16,7 +16,7 @@ import torch
 
 from otamg_torch.amg.hierarchy import BipartiteLevel, DenseLevel
 from otamg_torch.device import resolve
-from otamg_torch.ot.problems import Class1Problem
+from otamg_torch.ot.problems import Class1Problem, Class2Problem
 from otamg_torch.sparse.containers import CSR
 
 def _tensor(a, dev, name: str = "") -> torch.Tensor:
@@ -35,6 +35,11 @@ def key(k) -> torch.Tensor:
 def problem(C, r, l, p, q, gama, device=None) -> Class1Problem:
     dev = resolve(device)
     return Class1Problem(*(_tensor(a, dev) for a in (C, r, l, p, q, gama)))
+
+
+def problem2(C, r, l, p, q, Phi, mu, device=None) -> Class2Problem:
+    dev = resolve(device)
+    return Class2Problem(*(_tensor(a, dev) for a in (C, r, l, p, q, Phi, mu)))
 
 
 def csr(indptr, ell_cols, ell_vals, shape, device=None) -> CSR:

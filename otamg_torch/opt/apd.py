@@ -81,20 +81,25 @@ def _merit(lam, Zk, wlk, bk1, tk, gama, capacitated: bool):
 
 
 def make_solver_from_options(p, q, opts: APDOptions) -> NewtonSolver:
-    """The ``inner_solver`` menu (``Class1/APD_SsN_Class1.m:66-71``):
-    AMG and PCG in this slice."""
+    """The ``inner_solver`` menu (``Class1/APD_SsN_Class1.m:66-71``)."""
+    from otamg_torch.hybrid import (make_aug_pcg_solver, make_direct_solver,
+                                    make_hybrid_amg_solver)
+
     if opts.explicit_dist:
         raise NotImplementedError("explicit_dist is not ported")
+    if opts.inner_solver == InnerSolver.DIRECT:
+        return make_direct_solver(p, q)
     if opts.inner_solver == InnerSolver.PCG:
         return make_pcg_solver(p, q, opts.pcg)
+    if opts.inner_solver == InnerSolver.AUG_PCG:
+        return make_aug_pcg_solver(p, q, opts.pcg)
     if opts.inner_solver == InnerSolver.AMG:
-        from otamg_torch.hybrid import make_hybrid_amg_solver
-
         return make_hybrid_amg_solver(p, q, opts.amg,
                                       solve_dtype=opts.solve_dtype)
-    raise NotImplementedError(
-        f"inner solver {opts.inner_solver.name} is not ported yet "
-        "(ROADMAP.md Queue 1 item 10)")
+    if opts.inner_solver == InnerSolver.TWOGRID:
+        return make_hybrid_amg_solver(p, q, opts.amg, twogrid=True,
+                                      solve_dtype=opts.solve_dtype)
+    raise ValueError(f"unknown inner solver {opts.inner_solver}")
 
 
 class _Ssn(NamedTuple):
@@ -127,8 +132,9 @@ def make_class1_step(prob: Class1Problem, opts: APDOptions,
     zeros_t = torch.zeros(prob.n + prob.m, dtype=dtype, device=dev)
     # Inner-solver budget, to count FailAMG-style budget hits
     # (Class1/APD_SsN_Class1.m:163-166).
-    solver_maxit = (opts.amg.maxit if opts.inner_solver == InnerSolver.AMG
-                     else opts.pcg.maxit)
+    solver_maxit = (opts.amg.maxit if opts.inner_solver in
+                    (InnerSolver.AMG, InnerSolver.TWOGRID)
+                    else opts.pcg.maxit)
 
     def F_of(lam, Zk, bk1, wlk):
         return bk1 * lam - op.apply_A(op.prox_box(Zk, gama), p, q) - wlk
