@@ -1,19 +1,22 @@
 """Where the time of one warm Class-1 or Class-2 solve goes on the card.
 
     python3 chip_profile.py [--class2] [--size 500] [--outer 10]
-                            [--out TABLE.txt]
+                            [--solve-dtype float32] [--out TABLE.txt]
 
 Runs ``otamg_torch``'s ``solve_class1`` (AMG inner solver, F-cycle,
 fuse_deep, f64) on ``random_class1(PRNGKey(0), size, size)``, or with
 ``--class2`` ``solve_class2`` on ``random_class2(PRNGKey(0), size,
-size)`` with ``chip_smoke.py``'s Class-2 options, once whole to warm up,
+size)`` with ``chip_smoke.py``'s Class-2 options (with ``--solve-dtype
+float32`` the Newton solves run the mixed-precision configuration), once
+whole to warm up,
 then profiles the first ``--outer`` outer iterations of the same solve
 under ``torch.profiler`` (a whole solve launches ~1e6 kernels, whose
 trace takes the profiler minutes to digest).  Prints one JSON line: the
 card (``nvidia-smi`` name and power limit), the whole warm-up solve's
 outcome and seconds, the window's wall seconds, the device's busy time
 (the union of kernel intervals), its idle share, the kernel launches and
-host reads per outer iteration, and the operators with the most device
+host reads per outer iteration, the mixed path's refinement rounds and
+reverted rounds in the window, and the operators with the most device
 time.  With ``--out`` the profiler's full table is written to that file.
 Needs a CUDA card.
 """
@@ -53,6 +56,7 @@ def main() -> int:
     ap.add_argument("--outer", type=int, default=10)
     ap.add_argument("--out", default=None)
     ap.add_argument("--class2", action="store_true")
+    ap.add_argument("--solve-dtype", default=None, choices=["float32"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -61,6 +65,7 @@ def main() -> int:
 
     import chip_smoke
     from otamg_torch.device import fetch
+    from otamg_torch.hybrid.solver import refine_counts
     from otamg_torch.opt import solve_class1, solve_class2
     from otamg_torch.ot import random_class1, random_class2
     from otamg_torch.random import PRNGKey
@@ -70,10 +75,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     if args.class2:
-        opts, solve = chip_smoke.class2_opts(), solve_class2
+        opts, solve = chip_smoke.class2_opts(args.solve_dtype), solve_class2
         prob = random_class2(PRNGKey(0), args.size, args.size, device="cuda")
     else:
-        opts, solve = chip_smoke.class1_opts(), solve_class1
+        opts, solve = chip_smoke.class1_opts(args.solve_dtype), solve_class1
         prob = random_class1(PRNGKey(0), args.size, args.size, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -83,6 +88,7 @@ def main() -> int:
     window = dataclasses.replace(opts, maxit=args.outer)
     torch.cuda.synchronize()
     reads0 = fetch.reads
+    refine_counts.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -102,6 +108,7 @@ def main() -> int:
                                       row_limit=40))
     print(json.dumps({
         "class": 2 if args.class2 else 1, "size": args.size,
+        "solve_dtype": args.solve_dtype,
         "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "full_solve": {
             "converged": full.converged, "iters": full.iters,
@@ -114,6 +121,9 @@ def main() -> int:
         "kernel_launches": len(kernels),
         "launches_per_outer_iter": len(kernels) / res.iters,
         "host_reads_per_outer_iter": reads / res.iters,
+        "refine_rounds": refine_counts.rounds,
+        "reverted_rounds": refine_counts.reverted,
+        "newton_solves": refine_counts.solves,
         "top_ops_self_device_ms": [
             [a.key, a.self_device_time_total / 1e3, a.count]
             for a in top[:12]]}))

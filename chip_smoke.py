@@ -16,8 +16,8 @@ Phases, each printing one JSON line with its numbers and seconds:
    the plain version's time and a ``torch.sparse_csr_tensor @ x`` call's
    as a yardstick;
 4. sparse   — ``amg_solve_matrix`` on the 128x128 grid Laplacian + 0.01 I
-   as an ELL ``CSR`` (the path that runs the kernel), with its launches,
-   checked against the same solve through the plain SpMV;
+   as an ELL ``CSR`` (the path that runs the kernel), 30 iterations, with
+   its launches, checked against the same solve through the plain SpMV;
 5. class1   — ``solve_class1`` (AMG inner solver, F-cycle, fuse_deep):
    a 24x20 problem checked against ``scipy.optimize.linprog`` and against
    the port on the CPU, then 500x500 (one cold and two warm runs) and
@@ -27,8 +27,16 @@ Phases, each printing one JSON line with its numbers and seconds:
    feasibility polish): ``random_class2(PRNGKey(7), 20, 16,
    mu_frac=0.6)`` with the Class-2 defaults checked against
    ``scipy.optimize.linprog`` and against the port on the CPU, then
-   500x500 (one cold and two warm runs) and 1024x1024 once, each held to
-   the JAX package's CPU f64 run (``CLASS2_REF``).
+   500x500 (one cold and one warm run) and 1024x1024 once, each held to
+   the JAX package's CPU f64 run (``CLASS2_REF``);
+7. mixed    — the same Class-1 and Class-2 solves with
+   ``solve_dtype="float32"`` (fp32 AMG hierarchy, exact kernel deflation,
+   f64 refinement; ``bench.py``'s configuration on an accelerator):
+   Class-1 500x500 cold and warm and 1024x1024 once, Class-2 500x500
+   once, each held to the JAX package's CPU run of the same problem and
+   options (``MIXED_REF``) and printed beside the f64 run's seconds from
+   this call, with the refinement rounds, reverted rounds and mean
+   correction cycles.  Fails if TF32 matmuls are on.
 
 Then one JSON line listing every kernel, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits nonzero;
@@ -312,7 +320,7 @@ def phase_sparse_amg(dev):
     A = grid_csr(nx, 0.01, torch.float64, dev)
     b = torch.as_tensor(np.random.default_rng(0).standard_normal(nx * nx),
                         device=dev)
-    opts = AMGOptions(maxit=100)
+    opts = AMGOptions(maxit=SPARSE_MAXIT)
     ell_spmv.launches = 0
     t0 = time.perf_counter()
     res = hierarchy.amg_solve_matrix(A, b, opts)
@@ -338,21 +346,27 @@ def phase_sparse_amg(dev):
         raise AssertionError(f"kernel and plain solves differ: {dx:.2e}")
     if not rel <= SPARSE_REL_RES:
         raise AssertionError(f"sparse-AMG rel_res {rel:.3e} above "
-                             f"{SPARSE_REL_RES:.0e}")
+                             f"{SPARSE_REL_RES:.1e}")
     return launches
 
 
-# The generic (bigph=0) hierarchy with default options does not reach 1e-6
-# in 100 iterations on the 2-D grid Laplacian: the JAX package on the CPU
-# reaches 1.18e-3 on the 64x64 grid with the same options, and the port
-# the same.  The 128x128 solve must do at least as well (see PERF.md).
-SPARSE_REL_RES = 1.2e-3
+# The generic (bigph=0) hierarchy with default options stalls near 1e-3 on
+# the 2-D grid Laplacian: in 100 iterations the JAX package on the CPU
+# reaches 1.18e-3 on the 64x64 grid, and the port the same.  The card's
+# solve runs SPARSE_MAXIT iterations, in which the JAX package on the CPU
+# reaches 1.079e-2 on the 64x64 grid, and the port the same
+# (cpu_reference.py --grid 64 --maxit 30); the 128x128 solve must do at
+# least as well (see PERF.md).
+SPARSE_MAXIT = 30
+SPARSE_REL_RES = 1.1e-2
 
 
-def class1_opts():
+def class1_opts(solve_dtype=None):
+    """``bench.py``'s Class-1 options: AMG inner solver, F-cycle,
+    fuse_deep, and the Newton solves in ``solve_dtype``."""
     from otamg_torch.config import AMGOptions, APDOptions, Cycle, InnerSolver
 
-    return APDOptions(inner_solver=InnerSolver.AMG,
+    return APDOptions(inner_solver=InnerSolver.AMG, solve_dtype=solve_dtype,
                       amg=AMGOptions(cycle=Cycle.F, fuse_deep=True))
 
 
@@ -411,12 +425,12 @@ def phase_class1(dev):
                              "CPU run or with linprog")
 
     opts = class1_opts()
-    runs = []
+    runs = {}
     for label in ("cold", "warm", "warm"):
         res, secs, reads = run_class1(500, 500, dev, opts)
         if not res.converged:
             raise AssertionError(f"500x500 {label} run did not converge")
-        runs.append(secs)
+        runs.setdefault((500, label), secs)
         emit("class1_500", run=label, iters=res.iters,
              fail_count=res.fail_count, fxk=float(res.fxk[-1]),
              seconds=secs, host_reads_per_outer_iter=reads,
@@ -427,13 +441,18 @@ def phase_class1(dev):
          host_reads_per_outer_iter=reads, inner_total=res.inner_total)
     if not res.converged:
         raise AssertionError("1024x1024 run did not converge")
+    runs[(1024, "once")] = secs
     return runs
 
 
-def class2_opts():
+def class2_opts(solve_dtype=None):
+    """``bench.py``'s Class-2 options (the budget ``maxit=40, smoth=10``,
+    ``ssn_tol1=1e-10``, no polish), the Newton solves in
+    ``solve_dtype``."""
     from otamg_torch.config import AMGOptions, APDOptions, Cycle, InnerSolver
 
     return APDOptions(inner_solver=InnerSolver.AMG, ssn_tol1=1e-10,
+                      solve_dtype=solve_dtype,
                       amg=AMGOptions(maxit=40, smoth=10, cycle=Cycle.F,
                                      fuse_deep=True), feas_polish=False)
 
@@ -508,10 +527,10 @@ def phase_class2(dev):
                              "with the CPU run or with linprog")
 
     opts = class2_opts()
-    runs = []
-    for label in ("cold", "warm", "warm"):
+    runs = {}
+    for label in ("cold", "warm"):
         res, secs, reads = run_class2(500, 500, dev, opts)
-        runs.append(secs)
+        runs[(500, label)] = secs
         extra = ({"fxk_trajectory": res.fxk.tolist(),
                   "ssn_itnum": res.ssn_itnum.tolist()}
                  if label == "cold" else {})
@@ -521,6 +540,7 @@ def phase_class2(dev):
     res, secs, reads = run_class2(1024, 1024, dev, opts)
     emit("class2_1024", seconds=secs, host_reads_per_outer_iter=reads,
          **held_to_reference(1024, res))
+    runs[(1024, "once")] = secs
     return runs
 
 
@@ -577,6 +597,82 @@ def held_to_reference(size, res):
     return row
 
 
+def phase_mixed(dev, f64_seconds):
+    """``bench.py``'s configuration on an accelerator: the Newton solves
+    with ``solve_dtype="float32"`` (fp32 hierarchy, exact kernel
+    deflation, f64 refinement), each run held to the JAX package's CPU
+    run of the same problem and options (``MIXED_REF``), beside the f64
+    run's seconds from this call (``f64_seconds[(class, size, run)]``)."""
+    from otamg_torch.hybrid.solver import refine_counts
+
+    tf32 = dict(allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                float32_matmul_precision=torch.get_float32_matmul_precision())
+    emit("mixed_tf32", **tf32)
+    if tf32["allow_tf32"] or tf32["float32_matmul_precision"] != "highest":
+        raise AssertionError(f"TF32 matmuls are on ({tf32}): the fp32 "
+                             "hierarchy needs true fp32")
+    for cls, size, label in ((1, 500, "cold"), (1, 500, "warm"),
+                             (1, 1024, "once"), (2, 500, "once")):
+        refine_counts.reset()
+        if cls == 1:
+            res, secs, reads = run_class1(size, size, dev,
+                                          class1_opts("float32"))
+        else:
+            res, secs, reads = run_class2(size, size, dev,
+                                          class2_opts("float32"))
+        c = refine_counts
+        emit("mixed", **{"class": cls}, size=size, run=label, seconds=secs,
+             f64_seconds=f64_seconds[(cls, size, label)],
+             host_reads_per_outer_iter=reads, newton_solves=c.solves,
+             refine_rounds=c.rounds, reverted_rounds=c.reverted,
+             rounds_per_solve=c.rounds / max(c.solves, 1),
+             mean_correction_cycles=c.cycles / max(c.rounds, 1),
+             **held_to_mixed_reference(cls, size, res))
+
+
+# The JAX package's solves on the CPU of random_class1/2(PRNGKey(0), N, N)
+# with class1_opts("float32") / class2_opts("float32") and f64 plans
+# (cpu_reference.py --solve-dtype float32 [--class2] --size N).
+# Class-2 500x500 does not reach KKT 1e-6 in 100 iterations, as in f64.
+MIXED_REF = {
+    (1, 500): dict(converged=True, iters=55, fail_count=0,
+                   fxk=1.0810500251146964),
+    (1, 1024): dict(converged=True, iters=51, fail_count=0,
+                    fxk=1.1383636551928087),
+    (2, 500): dict(converged=False, iters=100, fail_count=0,
+                   fxk=0.36282848278939284),
+}
+
+
+def held_to_mixed_reference(cls, size, res):
+    """The numbers of a mixed-precision solve beside the JAX CPU run's;
+    raises unless ``converged`` is equal, the outer iterations equal (or,
+    converged, within ``ITERS_SLACK``), the objective agrees to 1e-8 and
+    the plan's (Class 2: and the slacks') KKT residuals are at target."""
+    ref = MIXED_REF[(cls, size)]
+    if cls == 1:
+        rel = np.asarray([res.kkt_x[-1] / (1 + res.kkt_x[0]),
+                          res.kkt_l[-1] / (1 + res.kkt_l[0])])
+        at_target = rel[0] <= 1e-6
+    else:
+        rel = res.kkt[-1] / (1 + res.kkt[0])
+        at_target = rel[:3].max() <= 1e-6
+    row = dict(converged=res.converged, iters=res.iters,
+               fail_count=res.fail_count, fxk=float(res.fxk[-1]),
+               inner_total=res.inner_total, rel_kkt=rel.tolist(),
+               fxk_rel_vs_cpu=abs(res.fxk[-1] - ref["fxk"]) / ref["fxk"],
+               cpu=ref)
+    slack = ITERS_SLACK if ref["converged"] else 0
+    if not (res.converged == ref["converged"]
+            and abs(res.iters - ref["iters"]) <= slack
+            and row["fxk_rel_vs_cpu"] <= 1e-8 and at_target):
+        emit(f"mixed_class{cls}_{size}_mismatch", **row,
+             ssn_itnum=[int(v) for v in res.ssn_itnum])
+        raise AssertionError(f"mixed Class-{cls} {size}x{size} differs "
+                             "from the JAX CPU run")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -601,8 +697,10 @@ def main() -> int:
     rows = phase_kernels(card, dev)
     emit("kernel_checks", seconds=time.perf_counter() - t0)
     launches = phase_sparse_amg(dev)
-    phase_class1(dev)
-    phase_class2(dev)
+    f64 = {(1,) + k: v for k, v in phase_class1(dev).items()}
+    f64.update({(2,) + k: v for k, v in phase_class2(dev).items()})
+    f64[(2, 500, "once")] = f64[(2, 500, "warm")]
+    phase_mixed(dev, f64)
 
     main_row = rows[("grid128", torch.float64)]
     print(json.dumps({"kernels": [{

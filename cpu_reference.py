@@ -1,23 +1,31 @@
 """The JAX package's solves on the CPU in f64: the references for the
 port's runs on the card.
 
-    JAX_PLATFORMS=cpu python cpu_reference.py --size 500
+    JAX_PLATFORMS=cpu python cpu_reference.py --size 500 [--port]
+                                              [--solve-dtype float32]
+                                              [--dtype float32]
     JAX_PLATFORMS=cpu python cpu_reference.py --class2 --size 500 [--port]
                                               [--newton-parity] [--polish]
-                                              [--verbose]
-    JAX_PLATFORMS=cpu python cpu_reference.py --grid 64
+                                              [--verbose] [--solve-dtype
+                                              float32] [--dtype float32]
+    JAX_PLATFORMS=cpu python cpu_reference.py --grid 64 [--maxit 30]
 
 ``--size``: solves ``random_class1(PRNGKey(0), size, size)`` with the
 options ``chip_smoke.py`` gives the port (AMG inner solver, F-cycle,
 fuse_deep, f64) and prints one JSON line: converged, outer iterations,
-fail_count, the final objective, the total inner iterations and the wall
-seconds on this CPU (compilation included).  With ``--class2`` it solves
+fail_count, the final objective, the total inner iterations, the final
+relative KKT residuals and the wall seconds on this CPU (compilation
+included).  ``--solve-dtype float32`` runs the Newton solves in the
+mixed-precision configuration (fp32 hierarchy, f64 refinement);
+``--dtype float32`` makes the plan fp32 (the dual state stays f64);
+with ``--port`` the line adds the mixed path's refinement counts.  With ``--class2`` it solves
 ``random_class2(PRNGKey(0), size, size)`` with ``chip_smoke.py``'s
 Class-2 options (AMG inner solver, ``maxit=40, smoth=10``, F-cycle,
 fuse_deep, ``ssn_tol1=1e-10``, no feasibility polish) and adds whether
 the polish was used, the SsN steps of every outer iteration and the
-objective after each; ``--port`` runs the port's ``solve_class2`` on the
-CPU in place of the JAX package's, ``--newton-parity`` runs the port's
+objective after each; ``--port`` runs the port's ``solve_class1`` or
+``solve_class2`` on the CPU in place of the JAX package's, with the same
+dtypes, ``--newton-parity`` runs the port's
 solve and hands every one of its Newton systems to the JAX package's
 POT-AMG solver as well (the same inputs and key), adding the number of
 systems, those whose inner iterations differ and the largest relative
@@ -28,9 +36,9 @@ polish on.
 
 ``--grid``: the sparse-AMG solve ``chip_smoke.py`` runs on the card
 (``amg_solve_matrix`` on the grid x grid 5-point Laplacian + 0.01 I as an
-ELL CSR, ``AMGOptions(maxit=100)``, right-hand side from
-``default_rng(0)``), by the JAX package and by the port on the CPU; one
-JSON line with each one's iterations and relative residual.
+ELL CSR, ``AMGOptions(maxit=--maxit)``, 100 by default, right-hand side
+from ``default_rng(0)``), by the JAX package and by the port on the CPU;
+one JSON line with each one's iterations and relative residual.
 """
 
 from __future__ import annotations
@@ -52,52 +60,87 @@ def main() -> None:
     ap.add_argument("--newton-parity", action="store_true")
     ap.add_argument("--polish", action="store_true")
     ap.add_argument("--verbose", action="store_true")
+    ap.add_argument("--solve-dtype", default=None, choices=["float32"])
+    ap.add_argument("--dtype", default="float64",
+                    choices=["float64", "float32"])
+    ap.add_argument("--maxit", type=int, default=100)
     args = ap.parse_args()
     jax.config.update("jax_enable_x64", True)
     if args.grid:
-        grid_reference(args.grid)
+        grid_reference(args.grid, args.maxit)
         return
     if args.class2:
         class2_reference(args.size, args.port or args.newton_parity,
-                         args.newton_parity, args.polish, args.verbose)
+                         args.newton_parity, args.polish, args.verbose,
+                         args.solve_dtype, args.dtype)
         return
-    from otamg.config import AMGOptions, APDOptions, Cycle, InnerSolver
-    from otamg.opt import solve_class1
-    from otamg.ot import random_class1
+    if args.port:
+        import torch
 
-    prob = random_class1(jax.random.PRNGKey(0), args.size, args.size)
-    opts = APDOptions(inner_solver=InnerSolver.AMG,
-                      amg=AMGOptions(cycle=Cycle.F, fuse_deep=True))
+        import chip_smoke
+        from otamg_torch.opt import solve_class1
+        from otamg_torch.ot import random_class1
+        from otamg_torch.random import PRNGKey
+
+        prob = random_class1(PRNGKey(0), args.size, args.size,
+                             dtype=getattr(torch, args.dtype), device="cpu")
+        opts = chip_smoke.class1_opts(args.solve_dtype)
+    else:
+        import jax.numpy as jnp
+
+        from otamg.config import AMGOptions, APDOptions, Cycle, InnerSolver
+        from otamg.opt import solve_class1
+        from otamg.ot import random_class1
+
+        prob = random_class1(jax.random.PRNGKey(0), args.size, args.size,
+                             dtype=getattr(jnp, args.dtype))
+        opts = APDOptions(inner_solver=InnerSolver.AMG,
+                          solve_dtype=args.solve_dtype,
+                          amg=AMGOptions(cycle=Cycle.F, fuse_deep=True))
     t0 = time.perf_counter()
-    res = solve_class1(prob, opts)
+    res = solve_class1(prob, opts, verbose=args.verbose)
     print(json.dumps({
-        "size": args.size, "backend": jax.default_backend(),
+        "size": args.size,
+        "backend": "port-cpu" if args.port else jax.default_backend(),
+        "solve_dtype": args.solve_dtype, "dtype": args.dtype,
         "converged": res.converged, "iters": res.iters,
         "fail_count": res.fail_count, "fxk": float(res.fxk[-1]),
         "inner_total": res.inner_total,
-        "seconds": time.perf_counter() - t0}))
+        "rel_kkt": [float(res.kkt_x[-1] / (1 + res.kkt_x[0])),
+                    float(res.kkt_l[-1] / (1 + res.kkt_l[0]))],
+        **refine_counts(args.port),
+        "seconds": time.perf_counter() - t0,
+        "ssn_itnum": [int(v) for v in res.ssn_itnum]}))
 
 
 def class2_reference(size: int, port: bool, parity: bool, polish: bool,
-                     verbose: bool) -> None:
+                     verbose: bool, solve_dtype=None,
+                     dtype: str = "float64") -> None:
     solver, extra = None, {}
     if port:
+        import torch
+
         import chip_smoke
         from otamg_torch.opt import solve_class2
         from otamg_torch.ot import random_class2
         from otamg_torch.random import PRNGKey
 
-        prob = random_class2(PRNGKey(0), size, size, device="cpu")
-        opts = chip_smoke.class2_opts()
+        prob = random_class2(PRNGKey(0), size, size,
+                             dtype=getattr(torch, dtype), device="cpu")
+        opts = chip_smoke.class2_opts(solve_dtype)
         if parity:
             solver, extra = newton_parity(prob, opts)
     else:
+        import jax.numpy as jnp
+
         from otamg.config import AMGOptions, APDOptions, Cycle, InnerSolver
         from otamg.opt.apd2 import solve_class2
         from otamg.ot import random_class2
 
-        prob = random_class2(jax.random.PRNGKey(0), size, size)
+        prob = random_class2(jax.random.PRNGKey(0), size, size,
+                             dtype=getattr(jnp, dtype))
         opts = APDOptions(inner_solver=InnerSolver.AMG, ssn_tol1=1e-10,
+                          solve_dtype=solve_dtype,
                           amg=AMGOptions(maxit=40, smoth=10, cycle=Cycle.F,
                                          fuse_deep=True), feas_polish=False)
     opts = dataclasses.replace(opts, feas_polish=polish)
@@ -106,12 +149,27 @@ def class2_reference(size: int, port: bool, parity: bool, polish: bool,
     print(json.dumps({
         **extra, "class": 2, "size": size,
         "backend": "port-cpu" if port else jax.default_backend(),
+        "solve_dtype": solve_dtype, "dtype": dtype,
         "converged": res.converged, "iters": res.iters,
         "fail_count": res.fail_count, "fxk": float(res.fxk[-1]),
         "polished": res.polished, "inner_total": res.inner_total,
+        "rel_kkt": (res.kkt[-1] / (1 + res.kkt[0])).tolist(),
+        **refine_counts(port),
         "seconds": time.perf_counter() - t0,
         "ssn_itnum": [int(v) for v in res.ssn_itnum],
         "fxk_trajectory": [float(v) for v in res.fxk]}))
+
+
+def refine_counts(port: bool) -> dict:
+    """The port's mixed-path counts of the run (none for the JAX
+    package's)."""
+    if not port:
+        return {}
+    import dataclasses as dc
+
+    from otamg_torch.hybrid.solver import refine_counts as counts
+
+    return {"refine": dc.asdict(counts)}
 
 
 def newton_parity(prob, opts):
@@ -129,8 +187,9 @@ def newton_parity(prob, opts):
     jsolve = jax.jit(jax_pot(
         *(jnp.asarray(t.numpy()) for t in (prob.p, prob.q, prob.Phi)),
         AMGOptions(maxit=a.maxit, smoth=a.smoth, cycle=Cycle[a.cycle.name],
-                   fuse_deep=a.fuse_deep)))
-    tsolve = port_pot(prob.p, prob.q, prob.Phi, a)
+                   fuse_deep=a.fuse_deep), solve_dtype=opts.solve_dtype))
+    tsolve = port_pot(prob.p, prob.q, prob.Phi, a,
+                      solve_dtype=opts.solve_dtype)
     out = {"systems": 0, "iters_differ": [], "zeta_max_rel_diff": 0.0}
 
     def solve(S, tvec, bk1, tk, rhs, key):
@@ -150,7 +209,7 @@ def newton_parity(prob, opts):
     return solve, out
 
 
-def grid_reference(nx: int) -> None:
+def grid_reference(nx: int, maxit: int) -> None:
     import jax.numpy as jnp
     import numpy as np
     import torch
@@ -168,13 +227,13 @@ def grid_reference(nx: int) -> None:
                   jnp.asarray(A.ell_cols.numpy()),
                   jnp.asarray(A.ell_vals.numpy()))
     t0 = time.perf_counter()
-    rj = jax_solve(jcsr, jnp.asarray(b), AMGOptions(maxit=100))
+    rj = jax_solve(jcsr, jnp.asarray(b), AMGOptions(maxit=maxit))
     tj = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rt = port_solve(A, torch.as_tensor(b), PortAMGOptions(maxit=100))
+    rt = port_solve(A, torch.as_tensor(b), PortAMGOptions(maxit=maxit))
     tt = time.perf_counter() - t0
     print(json.dumps({
-        "grid": nx, "jax_iters": int(rj.iters),
+        "grid": nx, "maxit": maxit, "jax_iters": int(rj.iters),
         "jax_rel_res": float(rj.rel_res), "jax_seconds": tj,
         "port_iters": rt.iters, "port_rel_res": float(rt.rel_res),
         "port_seconds": tt,

@@ -1,15 +1,20 @@
 """otamg_torch — the PyTorch/CUDA port of ``otamg``.
 
 The same layers as the JAX package, module for module (``ot/``,
-``opt/``, ``krylov/``, ``amg/``, ``hybrid/``, ``sparse/``), in f64, with
-hand-written CUDA kernels for Hopper under ``csrc/``.  Entry points run
-on CUDA unless the caller names another device (:mod:`otamg_torch.device`).
-The port imports neither ``jax`` nor anything of ``otamg``.
+``opt/``, ``krylov/``, ``amg/``, ``hybrid/``, ``sparse/``), with
+hand-written CUDA kernels for Hopper under ``csrc/``.  Problems are f64 by
+default; ``APDOptions(solve_dtype="float32")`` runs the AMG hierarchy in
+fp32 with f64 refinement, and an fp32 plan keeps its dual state and
+reductions in f64.  Entry points run on CUDA unless the caller names
+another device (:mod:`otamg_torch.device`).  The port imports neither
+``jax`` nor anything of ``otamg``.
 
-Keep ``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default):
-the JAX package multiplies at ``Precision.HIGHEST``, and TF32 would keep
-about three decimal digits of any float32 product.  The slice runs in
-f64, where TF32 does not apply.
+Keep ``torch.backends.cuda.matmul.allow_tf32`` False and
+``torch.get_float32_matmul_precision()`` at ``"highest"`` (PyTorch's
+defaults): the JAX package multiplies at ``Precision.HIGHEST``, TF32
+keeps about three decimal digits of a float32 product, and the fp32
+hierarchy's coarse cutoff, its ``4 eps`` tolerance floor and the
+refinement all assume true fp32.
 """
 
 __version__ = "0.1.0"

@@ -17,8 +17,14 @@
   here by a Python loop; ``fuse_deep`` replaces the tape below level 0 by
   one dense matrix per hierarchy.
 
-The mixed-precision (``deflated``) cycle, the sharded and
-aggregation levels and ``setup_hierarchy_sparse`` are later slices.
+* **The deflated cycle** (``deflated=True``) serves the correction
+  solves of the mixed-precision Newton solver: instead of solving for the
+  kernel coordinate of each near-singular component, every sweep and the
+  coarse solve project it out, and the f64 algebra around the solve
+  (``otamg_torch.hybrid.solver.build_he_solver``) handles it exactly.
+
+The sharded and aggregation levels and ``setup_hierarchy_sparse`` are
+later slices.
 """
 
 from __future__ import annotations
@@ -152,14 +158,34 @@ def _level0_ops(lv):
     return dense_matvec, dense_smooth_apply
 
 
+def _deflate(e, xi, nsp, labels, safe_cnt, nseg: int):
+    """``e`` minus its mean over every near-singular component."""
+    mean = segment_sum(e * xi, labels, nseg) / safe_cnt
+    return e - xi * torch.where(nsp, mean[labels], 0.0)
+
+
 def _projected_smooth(matvec, smooth_apply, lv, e, r, smoth_it: int,
-                      transpose: bool, nseg: int):
+                      transpose: bool, nseg: int, deflated: bool = False):
     """``smoth_it`` sweeps of per-component kernel-projected smoothing
     (generalizes ``MG_Vcycle.m:14-24``): each sweep corrects the
     residual's mean over every near-singular component exactly along the
     component's constant vector; other components get the plain sweep
-    ``e += R (r - A e)``."""
+    ``e += R (r - A e)``.
+
+    ``deflated=True`` (the mixed-precision correction solves) projects
+    the component mean out after every plain sweep instead of solving for
+    it: in fp32 the coarse matrices carry roundoff of ~eps |A| in their
+    kernel-mode curvature, which at small ``bk1`` dwarfs the true
+    curvature, so a solved kernel coordinate would grow from cycle to
+    cycle."""
     xi = lv.nsp.to(r.dtype)
+    if deflated:
+        cnt = segment_sum(xi, lv.labels, nseg)
+        safe_cnt = torch.where(cnt > 0, cnt, 1.0)
+        for _ in range(smoth_it):
+            e = e + smooth_apply(lv, r - matvec(lv, e), transpose)
+            e = _deflate(e, xi, lv.nsp, lv.labels, safe_cnt, nseg)
+        return e
     safe_xx = torch.where(torch.abs(lv.xx) > 0, lv.xx, 1.0)
     for _ in range(smoth_it):
         g = r - matvec(lv, e)
@@ -170,13 +196,17 @@ def _projected_smooth(matvec, smooth_apply, lv, e, r, smoth_it: int,
 
 
 def _projected_smooth_bip(lv: BipartiteLevel, e, r, smoth_it: int,
-                          transpose: bool, nseg: int, e_is_zero: bool):
+                          transpose: bool, nseg: int, deflated: bool,
+                          e_is_zero: bool):
     """Fused form of :func:`_projected_smooth` for the bipartite fine
     level, the solver's hot loop.  The edge products ``u = E e1`` and
     ``w = E^T e2`` are carried across sweeps and updated from each
     sweep's corrections, so a sweep does exactly the two directed
     products its Gauss-Seidel order forces.  ``e_is_zero`` marks the
-    pre-smoothing entry, where the carried products start at zero."""
+    pre-smoothing entry, where the carried products start at zero.
+    ``deflated`` projects each component mean out after the sweep, and
+    the carried products take the projection through ``Exi1``/``Etxi2``
+    (``E`` has no edge across components)."""
     n = lv.W.shape[0]
     m = lv.E.shape[0]
     itk = lv.inv_tk
@@ -195,6 +225,36 @@ def _projected_smooth_bip(lv: BipartiteLevel, e, r, smoth_it: int,
         e1, e2 = e[:n], e[n:]
         u = lv.E @ e1
         w = lv.E.T @ e2
+
+    def directed(gp1, gp2):
+        """One Gauss-Seidel block sweep: ``(d1, d2, E d1, E^T d2)``."""
+        if not transpose:
+            d1 = gp1 / g1d
+            t = lv.E @ d1
+            d2 = (gp2 + itk * t) / g2d
+            tw = lv.E.T @ d2
+        else:
+            d2 = gp2 / g2d
+            tw = lv.E.T @ d2
+            d1 = (gp1 + itk * tw) / g1d
+            t = lv.E @ d1
+        return d1, d2, t, tw
+
+    if deflated:
+        cnt = segment_sum(xi1, lab1, nseg) + segment_sum(xi2, lab2, nseg)
+        safe_cnt = torch.where(cnt > 0, cnt, 1.0)
+        for _ in range(smoth_it):
+            d1, d2, t, tw = directed(r1 - g1d * e1 + itk * w,
+                                     r2 - g2d * e2 + itk * u)
+            e1, e2 = e1 + d1, e2 + d2
+            mean = (segment_sum(e1 * xi1, lab1, nseg)
+                    + segment_sum(e2 * xi2, lab2, nseg)) / safe_cnt
+            m1 = torch.where(nsp1, mean[lab1], 0.0)
+            m2 = torch.where(nsp2, mean[lab2], 0.0)
+            e1, e2 = e1 - xi1 * m1, e2 - xi2 * m2
+            u = u + t - m2 * lv.Exi1
+            w = w + tw - m1 * lv.Etxi2
+        return torch.cat([e1, e2])
     xx1, xx2 = lv.xx[:n], lv.xx[n:]
     sxx1 = torch.where(torch.abs(xx1) > 0, xx1, 1.0)
     sxx2 = torch.where(torch.abs(xx2) > 0, xx2, 1.0)
@@ -206,18 +266,7 @@ def _projected_smooth_bip(lv: BipartiteLevel, e, r, smoth_it: int,
                + segment_sum(gg2 * xi2, lab2, nseg))
         c1 = torch.where(nsp1, xig[lab1] / sxx1, 0.0)
         c2 = torch.where(nsp2, xig[lab2] / sxx2, 0.0)
-        gp1 = gg1 - Axi1 * c1
-        gp2 = gg2 - Axi2 * c2
-        if not transpose:
-            d1 = gp1 / g1d
-            t = lv.E @ d1
-            d2 = (gp2 + itk * t) / g2d
-            tw = lv.E.T @ d2
-        else:
-            d2 = gp2 / g2d
-            tw = lv.E.T @ d2
-            d1 = (gp1 + itk * tw) / g1d
-            t = lv.E @ d1
+        d1, d2, t, tw = directed(gg1 - Axi1 * c1, gg2 - Axi2 * c2)
         e1 = e1 + xi1 * c1 + d1
         e2 = e2 + xi2 * c2 + d2
         u = u + c2 * lv.Exi1 + t
@@ -332,8 +381,14 @@ def _build_dense_chain(A0, act0, lab0, nsp0, caps, opts: AMGOptions,
         last = li == len(caps) - 1
         if last:
             # Coarsest level: eigendecomposed once per hierarchy; each
-            # visit applies the spectrally filtered inverse.
-            lam, evecs = torch.linalg.eigh(A_cur)
+            # visit applies the spectrally filtered inverse.  A level
+            # that is not finite (a zero coarse diagonal in fp32) gets NaN
+            # eigenpairs, as from jnp.linalg.eigh, where torch would
+            # raise; the solve's NaN guard then reverts the cycle.
+            finite = torch.isfinite(A_cur).all()
+            lam, evecs = torch.linalg.eigh(torch.where(finite, A_cur, 0.0))
+            lam = torch.where(finite, lam, torch.nan)
+            evecs = torch.where(finite, evecs, torch.nan)
             factor = (4.0 if dtype == torch.float64
                       else float(opts.coarse_cutoff_ulps))
             cutoff = factor * torch.finfo(dtype).eps * lam.abs().amax()
@@ -501,13 +556,20 @@ def _gen_tape(num_levels: int, gamma: int) -> list[tuple[str, int]]:
     return ops
 
 
-def _coarse_solve(lv, r, coarse_retol: float, coarse_maxit: int,
-                  coarse_direct: bool):
+def _coarse_solve(lv, r, nseg: int, deflated: bool, coarse_retol: float,
+                  coarse_maxit: int, coarse_direct: bool):
     """Coarsest-level solve: the spectrally filtered direct solve from the
-    setup-time eigendecomposition, or Jacobi-PCG (``MG_Vcycle.m:43``)."""
+    setup-time eigendecomposition, or Jacobi-PCG (``MG_Vcycle.m:43``).
+    ``deflated`` keeps the direct solve's correction kernel-free too."""
     if coarse_direct and isinstance(lv, DenseLevel) \
             and lv.evecs.shape[0] > 0:
-        return lv.evecs @ (lv.einv * (lv.evecs.T @ r))
+        e_c = lv.evecs @ (lv.einv * (lv.evecs.T @ r))
+        if deflated:
+            xi = lv.nsp.to(e_c.dtype)
+            cnt = segment_sum(xi, lv.labels, nseg)
+            e_c = _deflate(e_c, xi, lv.nsp, lv.labels,
+                           torch.where(cnt > 0, cnt, 1.0), nseg)
+        return e_c
     if isinstance(lv, BipartiteLevel):
         dg = lv.g
         mv = lambda v: bip_matvec(lv, v)
@@ -520,11 +582,12 @@ def _coarse_solve(lv, r, coarse_retol: float, coarse_maxit: int,
 
 def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
                coarse_retol: float = 1e-11, coarse_maxit: int = 10_000,
-               coarse_direct: bool = True):
+               coarse_direct: bool = True, deflated: bool = False):
     """Build ``cycle(lv1, dense_levels, r, deep_D=None) -> e`` running one
     V/W/F cycle off the visit tape, with ``cycle.build_deep(lv1, dense,
     dtype)`` materializing the tape below level 0 as one dense matrix
-    (``fuse_deep``)."""
+    (``fuse_deep``).  ``deflated`` selects the kernel-free smoothers and
+    coarse solve (see :func:`_projected_smooth`)."""
     tape = _gen_tape(num_dense + 1, gamma)
     can_fuse = num_dense >= 2
 
@@ -539,10 +602,11 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
         def lvl_smooth(l, e, r, transpose, e_is_zero=False):
             if l == 0 and bip0:
                 return _projected_smooth_bip(levels[0], e, r, smoth_it,
-                                             transpose, nseg, e_is_zero)
+                                             transpose, nseg, deflated,
+                                             e_is_zero)
             mv, sm = _level0_ops(levels[l])
             return _projected_smooth(mv, sm, levels[l], e, r, smoth_it,
-                                     transpose, nseg)
+                                     transpose, nseg, deflated)
 
         def restrict(l, rr):
             if l == 0 and bip0:
@@ -571,8 +635,9 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
                 es[l] = lvl_smooth(l, es[l] + prolong(l, es[l + 1]), rs[l],
                                    True)
             else:
-                es[l] = _coarse_solve(levels[l], rs[l], coarse_retol,
-                                      coarse_maxit, coarse_direct)
+                es[l] = _coarse_solve(levels[l], rs[l], nseg, deflated,
+                                      coarse_retol, coarse_maxit,
+                                      coarse_direct)
 
         if deep_D is not None:
             # The whole deep tape is the precomputed linear map deep_D.
@@ -591,9 +656,23 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
         its ``smoth_it``-fold composite, a visit the two-grid composition
         ``C = Gp (Hp + P D_next P^T (I - A Hp)) + Hp``, a warm-started
         W/F revisit ``D = C + C' (I - A C)``, and the coarse solve
-        ``evecs diag(einv) evecs^T``."""
+        ``evecs diag(einv) evecs^T``.  Deflated, a sweep is ``Q (I - K A)``
+        and ``Q diag(K)`` with ``Q`` the projector that removes the
+        component means, and the coarse solve is followed by ``Q``."""
         phase_cache: dict = {}
         node_cache: dict = {}
+
+        def proj_parts(lv):
+            xi = lv.nsp.to(dtype)
+            return xi, ((lv.labels[:, None] == lv.labels[None, :]).to(dtype)
+                        * xi[None, :])
+
+        def mean_projector(lv):
+            """``Pm`` with ``Q = I - Pm``: the component-mean operator on
+            the near-singular nodes."""
+            xi, xmat = proj_parts(lv)
+            cnt = xmat.sum(dim=1)   # the component's count, per node
+            return (xi / torch.where(cnt > 0, cnt, 1.0))[:, None] * xmat
 
         def phase_ops(idx):
             if idx in phase_cache:
@@ -602,19 +681,23 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
             A = lv.A.to(dtype)
             I = torch.eye(A.shape[0], dtype=dtype, device=A.device)
             K = 0.5 / torch.diagonal(A)
-            xi = lv.nsp.to(dtype)
-            xmat = ((lv.labels[:, None] == lv.labels[None, :]).to(dtype)
-                    * xi[None, :])
-            safe_xx = torch.where(torch.abs(lv.xx) > 0, lv.xx,
-                                  1.0).to(dtype)
-            Wm = (xi / safe_xx)[:, None] * xmat
-            M = xi[:, None] * Wm + K[:, None] * (
-                I - lv.Axi.to(dtype)[:, None] * Wm)
-            G1 = I - M @ A
+            if deflated:
+                Pm = mean_projector(lv)
+                IKA = I - K[:, None] * A
+                G1 = IKA - Pm @ IKA
+                B1 = torch.diag(K) - Pm * K[None, :]
+            else:
+                xi, xmat = proj_parts(lv)
+                safe_xx = torch.where(torch.abs(lv.xx) > 0, lv.xx,
+                                      1.0).to(dtype)
+                Wm = (xi / safe_xx)[:, None] * xmat
+                B1 = xi[:, None] * Wm + K[:, None] * (
+                    I - lv.Axi.to(dtype)[:, None] * Wm)
+                G1 = I - B1 @ A
             Gp, Hp = I, torch.zeros_like(I)
             for _ in range(smoth_it):
                 Gp = G1 @ Gp
-                Hp = G1 @ Hp + M
+                Hp = G1 @ Hp + B1
             phase_cache[idx] = (Gp, Hp)
             return Gp, Hp
 
@@ -637,7 +720,10 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
             if key not in node_cache:
                 if idx == last:
                     lv = dense[idx]
-                    D = ((lv.evecs * lv.einv[None, :]) @ lv.evecs.T).to(dtype)
+                    D = (lv.evecs * lv.einv[None, :]) @ lv.evecs.T
+                    if deflated:
+                        D = D - mean_projector(lv).to(D.dtype) @ D
+                    D = D.to(dtype)
                 else:
                     D = visit(idx, g)
                     if g >= 2:
@@ -677,16 +763,19 @@ class AMGSolveResult(NamedTuple):
 
 
 def amg_solve(lv1, dense: Sequence[DenseLevel], b: torch.Tensor,
-              guess: torch.Tensor, opts: AMGOptions) -> AMGSolveResult:
+              guess: torch.Tensor, opts: AMGOptions,
+              deflated: bool = False) -> AMGSolveResult:
     """Stationary iteration ``x += cycle(b - A x)`` with relative-residual
     stopping and the divergence guard (``Class_AMG.m:95-106``): a cycle
     whose residual grows, or is not finite, is reverted and ends the
-    loop.  One host read per iteration."""
+    loop.  One host read per iteration.  ``deflated=True`` keeps every
+    iterate kernel-free (the mixed-precision correction solves).  Below
+    f64 the relative tolerance is floored at 4 eps of ``b``'s dtype."""
     nseg = b.shape[0]
     gamma = {Cycle.V: 1, Cycle.W: 2, Cycle.F: 3}[opts.cycle]
     cycle = make_cycle(len(dense), opts.smoth, gamma, nseg,
                        opts.coarse_pcg.retol, opts.coarse_pcg.maxit,
-                       opts.coarse_solver == "direct")
+                       opts.coarse_solver == "direct", deflated)
     deep_D = (cycle.build_deep(lv1, dense, b.dtype)
               if opts.fuse_deep else None)
     mv0 = _level0_ops(lv1)[0]

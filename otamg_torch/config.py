@@ -7,10 +7,10 @@ option structs (``pcg_options`` at ``Class1/APD_SsN_Class1.m:81-84`` /
 ``PCG.m:18-32`` and ``amg_options`` at ``Class1/APD_SsN_Class1.m:87-88`` /
 ``AMG/Class_AMG.m:20-40``).
 
-Fields that only the JAX package reads (``solve_dtype`` other than None,
-``explicit_dist``, ``MeshOptions``) are kept so the two option sets stay
-field-for-field equal; the port raises where such a field selects a path
-it has not ported.
+Fields that only the JAX package reads (``explicit_dist``,
+``MeshOptions``) are kept so the two option sets stay field-for-field
+equal; the port raises where such a field selects a path it has not
+ported.
 """
 
 from __future__ import annotations

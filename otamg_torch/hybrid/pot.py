@@ -16,9 +16,8 @@ import torch
 
 from otamg_torch import random as jr
 from otamg_torch.config import AMGOptions, PCGOptions
-from otamg_torch.hybrid.solver import (_check_solve_dtype, build_he_solver,
-                                       dense_asat, make_aug_pcg_solver,
-                                       spd_solve)
+from otamg_torch.hybrid.solver import (build_he_solver, dense_asat,
+                                       make_aug_pcg_solver, spd_solve)
 from otamg_torch.opt.newton import NewtonSolveResult, NewtonSolver
 from otamg_torch.ot import operators as op
 
@@ -45,13 +44,15 @@ def _smw_combine(sg, phi_e, v, vv, ww, z2):
 
 def make_pot_amg_solver(p: torch.Tensor, q: torch.Tensor, Phi: torch.Tensor,
                         opts: AMGOptions, twogrid: bool = False,
-                        solve_dtype=None) -> NewtonSolver:
+                        solve_dtype=None, refine: int = 10) -> NewtonSolver:
     """POT Newton solver: SMW reduction and hybrid AMG core solves on one
     shared hierarchy (``AMG4POT.m`` with the 'amg'/'twogrid' backends).
     The two-grid options are built afresh from ``opts``, as the JAX
     package does: ``fuse_deep``, ``coarse_solver`` and ``coarse_target``
-    go back to their defaults."""
-    _check_solve_dtype(solve_dtype)
+    go back to their defaults.  ``solve_dtype`` and ``refine`` select the
+    mixed-precision core solves of
+    :func:`otamg_torch.hybrid.solver.build_he_solver`; both share the one
+    fp32 hierarchy."""
     if twogrid:
         opts = AMGOptions(
             retol=opts.retol, bigph=opts.bigph, maxit=opts.maxit,
@@ -64,7 +65,8 @@ def make_pot_amg_solver(p: torch.Tensor, q: torch.Tensor, Phi: torch.Tensor,
         sg, phi_e, v, w, z2 = _smw_rhs(S, bk1, tk, rhs, p, q, Phi)
         kg1, kg2, ks = jr.split(key, 3)
         he_solve, ncomp, last = build_he_solver(S, tvec, bk1, tk, p, q,
-                                                opts, ks)
+                                                opts, ks, solve_dtype,
+                                                refine)
         vv, it1, res1 = he_solve(v, kg1)
         ww, it2, res2 = he_solve(w, kg2)
         return NewtonSolveResult(_smw_combine(sg, phi_e, v, vv, ww, z2),

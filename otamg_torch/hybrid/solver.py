@@ -1,5 +1,4 @@
-"""Hybrid Newton-system solvers (port of the f64 path of
-``otamg/hybrid/solver.py``).
+"""Hybrid Newton-system solvers (port of ``otamg/hybrid/solver.py``).
 
 The SsN Jacobian system ``He zeta = z`` (``He = bk1 I + (T + H0)/tk``) is
 transformed by the similarity ``Q0 = diag(q, -p)`` into ``Ae u = f`` with
@@ -9,10 +8,15 @@ graph Laplacian of the bipartite active-set graph plus a diagonal.  All
 graph components are solved at once in one masked hierarchy whose
 projections act per component through the labels.
 
+With ``solve_dtype="float32"`` the hierarchy is built and cycled in
+fp32 and the solution is refined in the problem's precision: the kernel
+coordinate of each near-singular component is solved exactly in f64, and
+each refinement round runs one fp32 correction solve through the
+deflated cycle (``build_he_solver``).
+
 The same transform serves the nullspace-augmented PCG
 (``make_aug_pcg_solver``); ``make_direct_solver`` assembles the Jacobian
-densely.  Not in this slice: the mixed-precision branch of
-``build_he_solver`` (``solve_dtype``).
+densely.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from otamg_torch.amg.graph import connected_components_bipartite, segment_sum
 from otamg_torch.amg.hierarchy import (amg_solve, setup_hierarchy,
                                        setup_hierarchy_generic)
 from otamg_torch.config import AMGOptions, PCGOptions
+from otamg_torch.device import fetch
 from otamg_torch.krylov.pcg import pcg
 from otamg_torch.opt.newton import NewtonSolveResult, NewtonSolver
 from otamg_torch.ot import operators as op
@@ -71,22 +76,36 @@ def _a0diag_hi(S, p, q):
     return torch.cat([q2 * (S.T @ p2), p2 * (S @ q2)])
 
 
-def _check_solve_dtype(solve_dtype) -> None:
-    if solve_dtype is not None:
-        raise NotImplementedError(
-            "solve_dtype (the mixed-precision hierarchy with f64 "
-            "refinement) is not ported yet: ROADMAP.md Queue 1 item 11")
+@dataclasses.dataclass
+class RefineCounts:
+    """What the mixed-precision Newton solves did since the last
+    ``reset()``: solves, refinement rounds (one fp32 correction solve
+    each), rounds reverted by the safeguard, and correction cycles summed
+    over the rounds."""
+
+    solves: int = 0
+    rounds: int = 0
+    reverted: int = 0
+    cycles: int = 0
+
+    def reset(self) -> None:
+        self.solves = self.rounds = self.reverted = self.cycles = 0
+
+
+refine_counts = RefineCounts()
 
 
 def make_hybrid_amg_solver(p: torch.Tensor, q: torch.Tensor,
                            opts: AMGOptions, twogrid: bool = False,
-                           solve_dtype=None) -> NewtonSolver:
-    """Newton solver through the hybrid AMG path (``inner_solver=4``),
-    in the problem's precision.  ``twogrid=True`` is the two-level
-    variant of ``Hybrid_twogrid.m``: one coarse level solved by
-    Jacobi-PCG capped at 100 iterations (``twogrid_bigph.m:98-99``),
-    deliberately inexact."""
-    _check_solve_dtype(solve_dtype)
+                           solve_dtype=None,
+                           refine: int = 10) -> NewtonSolver:
+    """Newton solver through the hybrid AMG path (``inner_solver=4``).
+    ``twogrid=True`` is the two-level variant of ``Hybrid_twogrid.m``:
+    one coarse level solved by Jacobi-PCG capped at 100 iterations
+    (``twogrid_bigph.m:98-99``), deliberately inexact.  With
+    ``solve_dtype`` (``"float32"``) the hierarchy runs in that dtype and
+    up to ``refine`` rounds of refinement bring the solution to the
+    problem's precision (:func:`build_he_solver`)."""
     if twogrid:
         opts = dataclasses.replace(
             opts, max_levels=2, coarse_solver="pcg",
@@ -95,17 +114,35 @@ def make_hybrid_amg_solver(p: torch.Tensor, q: torch.Tensor,
     def solve(S, tvec, bk1, tk, rhs, key) -> NewtonSolveResult:
         k_setup, k_solve = jr.split(key)
         he_solve, ncomp, last = build_he_solver(S, tvec, bk1, tk, p, q,
-                                                opts, k_setup)
+                                                opts, k_setup, solve_dtype,
+                                                refine)
         zeta, iters, rel = he_solve(rhs, k_solve)
         return NewtonSolveResult(zeta, iters, rel, ncomp, last)
 
     return solve
 
 
-def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key):
+def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
+                    solve_dtype=None, refine: int = 10):
     """Build the hierarchy once and return ``(he_solve, ncomp, last)``,
     where ``he_solve(rhs, key) -> (zeta, iters, rel)`` solves
-    ``He zeta = rhs`` and may be called again against the same ``He``."""
+    ``He zeta = rhs`` and may be called again against the same ``He``.
+
+    With ``solve_dtype`` below the problem's dtype (the mixed path), the
+    hierarchy is built from ``E``, ``g``, ``1/tk`` and the analytic
+    ``gk`` cast once to it, and ``he_solve`` works in deflated
+    coordinates ``u = Y a + w``: ``a`` is each near-singular component's
+    kernel coordinate, solved exactly in the problem's precision from the
+    1-D equation ``bk1 (xi^T Q xi) a = xi^T (f - Ae w)``, and ``w`` is
+    kernel-free.  Up to ``refine`` rounds each take the true residual
+    through the structured operator and add one correction solve of the
+    deflated fp32 cycle; a round that does not lower the residual is
+    reverted and ends the loop.  Unlike the JAX package, the correction
+    solve's right-hand side is scaled by a power of two to unit norm.
+    ``iters`` is the most correction cycles of any round; each round
+    costs one host read besides its solve's."""
+    hi = S.dtype
+    lo = hi if solve_dtype is None else getattr(torch, solve_dtype)
     E, g, kdiag, _, q0 = _transform(S, tvec, bk1, tk, torch.zeros_like(tvec),
                                     p, q)
     labels, nsp, ncomp, last = _component_info(E, kdiag)
@@ -113,25 +150,103 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key):
         # bk1*Q + K/tk equals Ae @ (component indicator) exactly: the
         # analytic form of the kernel-projection quantities.
         gk = bk1 * torch.cat([q * q, p * p]) + kdiag / tk
-        lv1, dense = setup_hierarchy(E, g, 1.0 / tk, labels, nsp, opts,
-                                     key, gk=gk)
+        lv1, dense = setup_hierarchy(E.to(lo), g.to(lo), 1.0 / tk, labels,
+                                     nsp, opts, key, gk=gk.to(lo))
     else:
         # Non-bigph mode (``Class_AMG.m:72``): assemble the dense Ae and
         # run the generic weighted-Jacobi/MIS hierarchy.
         n, m = q.shape[0], p.shape[0]
-        Ae = torch.zeros(n + m, n + m, dtype=E.dtype, device=E.device)
+        Ae = torch.zeros(n + m, n + m, dtype=lo, device=E.device)
         Ae[:n, n:] = E.T
         Ae[n:, :n] = E
-        Ae = Ae * (-1.0 / tk) + torch.diag(g)
+        Ae = (Ae * torch.as_tensor(-1.0 / tk, dtype=lo, device=E.device)
+              + torch.diag(g.to(lo)))
         lv1, dense = setup_hierarchy_generic(Ae, opts, key, labels, nsp)
+
+    def draw_guess(f, kguess):
+        # Random initial guess scaled as the reference's bk1*tk*rand
+        # (Hybrid_AMG.m:69), drawn in the solve dtype.
+        return (bk1 * tk) * jr.uniform(kguess, f.shape, lo, f.device)
+
+    if lo == hi:
+        def he_solve(rhs, kguess):
+            f = q0 * rhs
+            r = amg_solve(lv1, dense, f, draw_guess(f, kguess), opts)
+            return q0 * r.x, r.iters, r.rel_res
+
+        return he_solve, ncomp, last
+
+    # The kernel-mode quantities, in the problem's precision.
+    n, N = q.shape[0], tvec.shape[0]
+    qp2 = torch.cat([q * q, p * p])
+    ghi = bk1 * qp2 + (kdiag + _a0diag_hi(S, p, q)) / tk
+    p2, q2 = p * p, q * q
+    nsp_f = nsp.to(hi)
+    qsum = segment_sum(qp2 * nsp_f, labels, N)
+    den = bk1 * qsum
+    safe_den = torch.where(den > 0, den, 1.0)
+    zeros_lo = torch.zeros(N, dtype=lo, device=S.device)
+
+    def ae_hi(v):
+        """``Ae v`` through the structured operator: two masked GEMVs."""
+        ev1 = p2 * (S @ (q2 * v[:n]))
+        ev2 = q2 * (S.T @ (p2 * v[n:]))
+        return ghi * v - torch.cat([ev2, ev1]) / tk
+
+    def deflate(w):
+        mean = segment_sum(qp2 * w * nsp_f, labels, N)
+        mean = torch.where(qsum > 0,
+                           mean / torch.where(qsum > 0, qsum, 1.0), 0.0)
+        return w - torch.where(nsp, mean[labels], 0.0) * nsp_f
 
     def he_solve(rhs, kguess):
         f = q0 * rhs
-        # Random initial guess scaled as the reference's bk1*tk*rand
-        # (Hybrid_AMG.m:69).
-        guess = (bk1 * tk) * jr.uniform(kguess, f.shape, f.dtype, f.device)
-        r = amg_solve(lv1, dense, f, guess, opts)
-        return q0 * r.x, r.iters, r.rel_res
+        nf = torch.linalg.vector_norm(f)
+        safe_nf = torch.where(nf > 0, nf, 1.0)
+        segf = segment_sum(f * nsp_f, labels, N)
+
+        def residual(w):
+            """``(wd, a, r)``: ``w`` deflated, its kernel coordinates
+            ``a(wd)`` per node, and ``r = f - bk1 Q Y a - Ae wd``; no
+            intermediate grows with ``a`` as ``bk1 -> 0``."""
+            wd = deflate(w)
+            segw = segment_sum(qp2 * wd * nsp_f, labels, N)
+            a = torch.where(den > 0, (segf - bk1 * segw) / safe_den, 0.0)
+            a = torch.where(nsp, a[labels], 0.0)
+            return wd, a, f - bk1 * qp2 * a * nsp_f - ae_hi(wd)
+
+        refine_counts.solves += 1
+        w = draw_guess(f, kguess).to(hi)
+        rel = torch.linalg.vector_norm(residual(w)[2]) / safe_nf
+        rounds, iters = 0, 0
+        go = fetch(rel > opts.retol)
+        while go and rounds < refine:
+            wd, _, r = residual(w)
+            # The correction solve sees r scaled by a power of two to
+            # unit norm: the same fp32 roundings, but no squares in its
+            # norms that underflow (a residual of 1e-20 is common at
+            # small bk1, and a backend that flushes subnormals would see
+            # a zero residual there).
+            nr = torch.linalg.vector_norm(r)
+            scale = torch.exp2(-torch.round(torch.log2(
+                torch.where(nr > 0, nr, 1.0))))
+            cor = amg_solve(lv1, dense, (r * scale).to(lo), zeros_lo, opts,
+                            deflated=True)
+            w2 = wd + cor.x.to(hi) / scale
+            rel2 = torch.linalg.vector_norm(residual(w2)[2]) / safe_nf
+            ok, go = fetch(torch.stack([rel2 < rel, rel2 > opts.retol]))
+            iters = max(iters, cor.iters)
+            refine_counts.rounds += 1
+            refine_counts.cycles += cor.iters
+            if ok:
+                w, rel, rounds = w2, rel2, rounds + 1
+            else:
+                # Safeguard: a correction that does not lower the true
+                # residual is reverted and ends the loop.
+                refine_counts.reverted += 1
+                w, rounds = wd, refine
+        wd, a, _ = residual(w)
+        return q0 * (wd + a), iters, rel
 
     return he_solve, ncomp, last
 

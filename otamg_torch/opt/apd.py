@@ -11,6 +11,12 @@ step reads its metrics once.  Along ``lam_old + step * zeta`` the map
 ``A^T lam`` is affine in ``step``, so ``A^T zeta`` is computed once and a
 backtrack costs one pass over the plan.
 
+Precision: with an fp32 plan the dual state (``lam``, ``wlk``, ``bk1``
+inside the SsN loop) and every O(mn) reduction into the dual space
+(``A x``, the merit's dots, the KKT norms, the objective) are f64, while
+the plan-space arrays and the Newton system stay fp32, as in the JAX
+package with ``jax_enable_x64``.
+
 Not in this slice: ``solve_class1_chunked``, ``solve_class1_fused``,
 checkpointing and ``explicit_dist``.
 """
@@ -67,17 +73,26 @@ class SolveResult:
     info_last: np.ndarray | None = None   # per-outer info[1] (it_num)
 
 
-def _merit(lam, Zk, wlk, bk1, tk, gama, capacitated: bool):
+def hi_dtypes(dtype):
+    """``(hi, acc)`` for a plan of ``dtype``: the dual state's dtype, f64
+    for an fp32 plan, and the ``out_dtype`` of the reductions into it
+    (None where it is the plan's own)."""
+    hi = torch.float64 if dtype == torch.float32 else dtype
+    return hi, (hi if hi != dtype else None)
+
+
+def _merit(lam, Zk, wlk, bk1, tk, gama, capacitated: bool, acc=None):
     """Dual merit for the Armijo search
     (``Class1/APD_SsN_Class1.m:182-189``): ``f0 + tk/2 ||prox(z)||^2``, or
     for capacity-constrained problems ``f0 + tk/2 (||z||^2 -
-    ||z - prox(z)||^2)`` — identical when ``gama = inf``."""
+    ||z - prox(z)||^2)`` — identical when ``gama = inf``.  ``acc``
+    accumulates the O(mn) dots in a higher precision."""
     f0 = bk1 / 2 * torch.dot(lam, lam) - torch.dot(wlk, lam)
     PZ = op.prox_box(Zk, gama)
     if capacitated:
-        return f0 + 0.5 * tk * (op.vdot_hi(Zk, Zk)
-                                - op.vdot_hi(Zk - PZ, Zk - PZ))
-    return f0 + 0.5 * tk * op.vdot_hi(PZ, PZ)
+        return f0 + 0.5 * tk * (op.vdot_hi(Zk, Zk, acc)
+                                - op.vdot_hi(Zk - PZ, Zk - PZ, acc))
+    return f0 + 0.5 * tk * op.vdot_hi(PZ, PZ, acc)
 
 
 def make_solver_from_options(p, q, opts: APDOptions) -> NewtonSolver:
@@ -121,10 +136,13 @@ def make_class1_step(prob: Class1Problem, opts: APDOptions,
     kkt_norm0) -> (X, V, lam, bk, key, resk, metrics)`` for ``prob``,
     where ``resk`` is the step's max(kkt_x, kkt_l) on the device and
     ``metrics`` holds host numbers (one read per step).  With
-    ``solver=None`` the Newton solver is built here, once."""
+    ``solver=None`` the Newton solver is built here, once.  ``lam`` is
+    in the dual dtype of :func:`hi_dtypes`."""
     p, q, C, gama = prob.p, prob.q, prob.C, prob.gama
     b = prob.b
     dev, dtype = C.device, C.dtype
+    hi, acc = hi_dtypes(dtype)
+    b_hi = b.to(hi)
     if capacitated is None:
         capacitated = bool(fetch(torch.any(torch.isfinite(gama))))
     if solver is None:
@@ -137,35 +155,41 @@ def make_class1_step(prob: Class1Problem, opts: APDOptions,
                     else opts.pcg.maxit)
 
     def F_of(lam, Zk, bk1, wlk):
-        return bk1 * lam - op.apply_A(op.prox_box(Zk, gama), p, q) - wlk
+        return (bk1 * lam
+                - op.apply_A(op.prox_box(Zk, gama), p, q, acc).to(hi) - wlk)
 
     def ssn_solve(Wk, wlk, lam0, bk1, tk, ssn_tol, key) -> _Ssn:
-        """The SsN loop (``Class1/APD_SsN_Class1.m:137-238``)."""
+        """The SsN loop (``Class1/APD_SsN_Class1.m:137-238``).  ``lam0``,
+        ``wlk`` and ``bk1`` are in the dual dtype, the z-space arrays in
+        the plan's."""
         lam = lam0
-        Zk = (Wk - op.apply_At(lam0, p, q)) / tk
+        Zk = (Wk - op.apply_At(lam0.to(dtype), p, q)) / tk
         nF0 = torch.linalg.vector_norm(F_of(lam, Zk, bk1, wlk))
         it, it_min, it_sum, it_max, fail = 0, np.iinfo(np.int32).max, 0, 0, 0
         ncomp = last = torch.zeros((), dtype=torch.int64, device=dev)
         done = bool(fetch(nF0 <= ssn_tol))
         while not done:
             lam_old = lam
-            At_lam = op.apply_At(lam_old, p, q)
+            At_lam = op.apply_At(lam_old.to(dtype), p, q)
             Zk_old = (Wk - At_lam) / tk
             S = ((Zk_old >= 0) & (Zk_old <= gama)).to(dtype)
             Fk_old = F_of(lam_old, Zk_old, bk1, wlk)
             nFk_old = torch.linalg.vector_norm(Fk_old)
             key, sub = jr.split(key)
-            sol = solver(S, zeros_t, bk1, tk, -Fk_old, sub)
-            zeta = sol.zeta
+            sol = solver(S, zeros_t, bk1.to(dtype), tk, (-Fk_old).to(dtype),
+                         sub)
+            zeta = sol.zeta.to(hi)
             # Armijo backtracking (:182-211), affine in `step`.
-            At_zeta = op.apply_At(zeta, p, q)
-            cF_old = _merit(lam_old, Zk_old, wlk, bk1, tk, gama, capacitated)
+            At_zeta = op.apply_At(sol.zeta.to(dtype), p, q)
+            cF_old = _merit(lam_old, Zk_old, wlk, bk1, tk, gama, capacitated,
+                            acc)
             ress = torch.abs(torch.dot(Fk_old, zeta))
             step, ll = 1.0, 0
             while True:
                 lam_t = lam_old + step * zeta
                 Z_t = (Wk - At_lam - step * At_zeta) / tk
-                cF_new = _merit(lam_t, Z_t, wlk, bk1, tk, gama, capacitated)
+                cF_new = _merit(lam_t, Z_t, wlk, bk1, tk, gama, capacitated,
+                                acc)
                 # A non-finite merit is "not yet acceptable".
                 if ll >= opts.ll_max or fetch(
                         cF_new <= cF_old - opts.nu * step * ress):
@@ -198,17 +222,18 @@ def make_class1_step(prob: Class1Problem, opts: APDOptions,
         tk = bk * (1 + ak) / (ak * ak)
         ssn_tol = torch.clamp_min(bk1 / kf ** 2, opts.ssn_tol1)
         Wk = -C + bk * (X + ak * V) / (ak * ak)
-        wlk = bk1 * (lam - (op.apply_A(X, p, q) - b) / bk) - b
+        wlk = (bk1 * (lam - (op.apply_A(X, p, q, acc).to(hi) - b_hi) / bk)
+               - b_hi)
 
         key, sub = jr.split(key)
-        ssn = ssn_solve(Wk, wlk, lam, bk1, tk, ssn_tol, sub)
+        ssn = ssn_solve(Wk, wlk, lam, bk1.to(hi), tk, ssn_tol, sub)
         lam1 = ssn.lam
         X1 = op.prox_box(ssn.Zk, gama)
         V1 = X1 + (X1 - X) / ak
 
         # Restart heuristic (:241-249): the normalized new KKT residual
         # against the raw previous one, as the reference does.
-        kx1, kl1 = op.kkt_class1(X1, lam1, C, b, p, q, gama)
+        kx1, kl1 = op.kkt_class1(X1, lam1, C, b, p, q, gama, acc)
         rr = torch.maximum(kx1 / (1 + kkt_norm0[0]),
                            kl1 / (1 + kkt_norm0[1]))
         key, sub = jr.split(key)
@@ -219,11 +244,11 @@ def make_class1_step(prob: Class1Problem, opts: APDOptions,
         V1 = torch.where(restart, X, V1)
 
         # Final residual record (:253-254) at the possibly-reverted state.
-        kx, kl = op.kkt_class1(X1, lam1, C, b, p, q, gama)
-        fxk = op.vdot_hi(C, X1)
+        kx, kl = op.kkt_class1(X1, lam1, C, b, p, q, gama, acc)
+        fxk = op.vdot_hi(C, X1, acc)
         kx_h, kl_h, fx_h, rs_h, nc_h, la_h = fetch(torch.stack([
-            kx, kl, fxk, restart.to(dtype), ssn.ncomp.to(dtype),
-            ssn.last.to(dtype)]))
+            t.to(torch.float64) for t in (kx, kl, fxk, restart, ssn.ncomp,
+                                          ssn.last)]))
         avg = ssn.it_sum // max(ssn.it, 1) if ssn.it > 0 else -1
         metrics = OuterMetrics(
             kkt_x=kx_h, kkt_l=kl_h, fxk=fx_h, ssn_it=ssn.it,
@@ -231,7 +256,8 @@ def make_class1_step(prob: Class1Problem, opts: APDOptions,
             it_max=ssn.it_max if ssn.it > 0 else -1, it_sum=ssn.it_sum,
             fail=ssn.fail, restarted=bool(rs_h), ncomp=int(nc_h),
             last=int(la_h))
-        return X1, V1, lam1, bk1, key, torch.maximum(kx, kl), metrics
+        return (X1, V1, lam1, bk1, key, torch.maximum(kx, kl).to(dtype),
+                metrics)
 
     return outer_step
 
@@ -246,12 +272,15 @@ def solve_class1(prob: Class1Problem, opts: APDOptions = APDOptions(),
     t0 = time.perf_counter()
     C = prob.C
     dtype, dev = C.dtype, C.device
+    hi, acc = hi_dtypes(dtype)
     if warm is None:
         X, lam = warmup_class1(prob, opts.warmup.maxit)
     else:
         X, lam = warm
-    kx, kl = op.kkt_class1(X, lam, C, prob.b, prob.p, prob.q, prob.gama)
-    kx0, kl0, fx0 = fetch(torch.stack([kx, kl, op.vdot_hi(C, X)]))
+    lam = lam.to(hi)
+    kx, kl = op.kkt_class1(X, lam, C, prob.b, prob.p, prob.q, prob.gama, acc)
+    kx0, kl0, fx0 = fetch(torch.stack([
+        t.to(torch.float64) for t in (kx, kl, op.vdot_hi(C, X))]))
     kkt_norm0 = torch.tensor([kx0, kl0], dtype=dtype, device=dev)
     V = X
 

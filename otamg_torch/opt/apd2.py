@@ -18,7 +18,9 @@ As in :mod:`otamg_torch.opt.apd` the JAX while-loops are Python loops
 that read one flag per test, and the outer step reads its metrics once.
 ``H^T lam`` is affine in the Armijo step, so ``H^T zeta`` is computed
 once per SsN step.  Slack blocks ``(y; z)`` travel as one ``(n + m,)``
-vector ``us``.
+vector ``us``.  With an fp32 plan the dual state and the O(mn)
+reductions into the dual space are f64, as in
+:mod:`otamg_torch.opt.apd`.
 
 Not in this slice: ``solve_class2_chunked``, ``solve_class2_fused`` and
 checkpointing (ROADMAP Queue 1 items 12 and 13).
@@ -38,6 +40,7 @@ from otamg_torch.config import AMGOptions, APDOptions, InnerSolver
 from otamg_torch.device import fetch
 from otamg_torch.krylov.pcg import pcg
 from otamg_torch.opt.admm import warmup_class2
+from otamg_torch.opt.apd import hi_dtypes
 from otamg_torch.opt.newton import NewtonSolveResult, NewtonSolver
 from otamg_torch.ot import operators as op
 from otamg_torch.ot.problems import Class2Problem
@@ -157,18 +160,25 @@ def make_class2_step(prob: Class2Problem, opts: APDOptions,
     ``prob``.  ``kkt0`` holds the warm start's four raw KKT residuals and
     ``prev_kkt`` the previous step's (``kkt0`` at ``k = 1``), both on the
     host; ``metrics`` holds host numbers (one read per step).  With
-    ``solver=None`` the Newton solver is built here, once."""
+    ``solver=None`` the Newton solver is built here, once.  ``lam`` is in
+    the dual dtype of :func:`otamg_torch.opt.apd.hi_dtypes`; the host
+    residuals are rounded to the plan's dtype, as the JAX package keeps
+    them on its device."""
     p, q, C, Phi = prob.p, prob.q, prob.C, prob.Phi
     b = prob.b
     n = prob.n
+    dtype = C.dtype
+    hi, acc = hi_dtypes(dtype)
+    b_hi = b.to(hi)
+    np_lo = np.float32 if dtype == torch.float32 else np.float64
     if solver is None:
         solver = make_pot_solver_from_options(p, q, Phi, opts)
     solver_maxit = (opts.amg.maxit if opts.inner_solver in
                     (InnerSolver.AMG, InnerSolver.TWOGRID)
                     else opts.pcg.maxit)
 
-    def Hu(X, us):
-        return op.apply_H(X, us[:n], us[n:], p, q, Phi)
+    def Hu(X, us, out_dtype=None):
+        return op.apply_H(X, us[:n], us[n:], p, q, Phi, out_dtype)
 
     def ssn_solve(WX, ws, wlk, lam0, bk1, tk, ssn_tol, key,
                   tail: bool) -> _Ssn2:
@@ -179,18 +189,19 @@ def make_class2_step(prob: Class2Problem, opts: APDOptions,
         feasibility residual."""
 
         def z_of(lam):
-            HtX, Hts = op.apply_Ht(lam, p, q, Phi)
+            HtX, Hts = op.apply_Ht(lam.to(dtype), p, q, Phi)
             return (WX - HtX) / tk, (ws - Hts) / tk
 
         def F_of(lam, ZX, zs):
-            return (bk1 * lam - Hu(op.prox_nonneg(ZX), op.prox_nonneg(zs))
-                    - wlk)
+            PX, ps = op.prox_nonneg(ZX), op.prox_nonneg(zs)
+            return bk1 * lam - Hu(PX, ps, acc).to(hi) - wlk
 
         def merit(lam, ZX, zs):
             f0 = bk1 / 2 * torch.dot(lam, lam) - torch.dot(wlk, lam)
             PX = op.prox_nonneg(ZX)
             ps = op.prox_nonneg(zs)
-            return f0 + 0.5 * tk * (op.vdot_hi(PX, PX) + op.vdot_hi(ps, ps))
+            return f0 + 0.5 * tk * (op.vdot_hi(PX, PX, acc)
+                                    + op.vdot_hi(ps, ps, acc))
 
         lam = lam0
         ZX, zs = z_of(lam0)
@@ -201,18 +212,19 @@ def make_class2_step(prob: Class2Problem, opts: APDOptions,
         done = bool(fetch(nF0 <= entry_tol))
         while not done:
             lam_old = lam
-            HtX_old, Hts_old = op.apply_Ht(lam_old, p, q, Phi)
+            HtX_old, Hts_old = op.apply_Ht(lam_old.to(dtype), p, q, Phi)
             ZX_old = (WX - HtX_old) / tk
             zs_old = (ws - Hts_old) / tk
-            S = (ZX_old >= 0).to(C.dtype)
-            tmask = (zs_old >= 0).to(C.dtype)
+            S = (ZX_old >= 0).to(dtype)
+            tmask = (zs_old >= 0).to(dtype)
             Fk_old = F_of(lam_old, ZX_old, zs_old)
             nFk_old = torch.linalg.vector_norm(Fk_old)
             key, sub = jr.split(key)
-            sol = solver(S, tmask, bk1, tk, -Fk_old, sub)
-            zeta = sol.zeta
+            sol = solver(S, tmask, bk1.to(dtype), tk, (-Fk_old).to(dtype),
+                         sub)
+            zeta = sol.zeta.to(hi)
             # Armijo (:199-231), affine in the step.
-            HtzX, Htzs = op.apply_Ht(zeta, p, q, Phi)
+            HtzX, Htzs = op.apply_Ht(sol.zeta.to(dtype), p, q, Phi)
             cF_old = merit(lam_old, ZX_old, zs_old)
             ress = torch.abs(torch.dot(Fk_old, zeta))
             step, ll = 1.0, 0
@@ -256,14 +268,16 @@ def make_class2_step(prob: Class2Problem, opts: APDOptions,
         ssn_tol = torch.clamp_min(bk1 / kf ** 2, opts.ssn_tol1)
         WX = -C + bk * (X + ak * VX) / (ak * ak)
         ws = bk * (us + ak * vs) / (ak * ak)   # the slack block of c is 0
-        wlk = bk1 * (lam - (Hu(X, us) - b) / bk) - b
+        wlk = bk1 * (lam - (Hu(X, us, acc).to(hi) - b_hi) / bk) - b_hi
         # Marginal-tail signature of the previous iteration.
-        prev_rel = np.asarray(prev_kkt) / (1 + np.asarray(kkt0))
+        kkt0 = np.asarray(kkt0, np_lo)
+        prev_kkt = np.asarray(prev_kkt, np_lo)
+        prev_rel = prev_kkt / (1 + kkt0)
         tail = bool(prev_rel[:3].max() <= opts.kkt_tol
                     and prev_rel[3] > opts.kkt_tol)
 
         key, sub = jr.split(key)
-        ssn = ssn_solve(WX, ws, wlk, lam, bk1, tk, ssn_tol, sub, tail)
+        ssn = ssn_solve(WX, ws, wlk, lam, bk1.to(hi), tk, ssn_tol, sub, tail)
         lam1 = ssn.lam
         X1 = op.prox_nonneg(ssn.ZX)
         us1 = op.prox_nonneg(ssn.zs)
@@ -272,10 +286,10 @@ def make_class2_step(prob: Class2Problem, opts: APDOptions,
 
         # Restart (:246-256): the normalized new residual against the raw
         # previous one, as the reference does; no draw.
-        kk = op.kkt_class2(X1, us1[:n], us1[n:], lam1, C, b, p, q, Phi)
-        rr = torch.amax(torch.stack([r / (1 + r0) for r, r0 in zip(kk,
-                                                                    kkt0)]))
-        restart = (bk1 < opts.restart_bk_floor) & (rr > max(prev_kkt))
+        kk = op.kkt_class2(X1, us1[:n], us1[n:], lam1, C, b, p, q, Phi, acc)
+        rr = torch.amax(torch.stack([r / float(1 + r0)
+                                     for r, r0 in zip(kk, kkt0)]))
+        restart = (bk1 < opts.restart_bk_floor) & (rr > float(prev_kkt.max()))
         bk1 = torch.where(restart, 10 * bk1, bk1)
         X1 = torch.where(restart, X, X1)
         us1 = torch.where(restart, us, us1)
@@ -284,12 +298,11 @@ def make_class2_step(prob: Class2Problem, opts: APDOptions,
         vs1 = torch.where(restart, us, vs1)
 
         kx, ky, kz, kl = op.kkt_class2(X1, us1[:n], us1[n:], lam1, C, b,
-                                       p, q, Phi)
-        fxk = op.vdot_hi(C, X1)
-        dtype = C.dtype
+                                       p, q, Phi, acc)
+        fxk = op.vdot_hi(C, X1, acc)
         kx_h, ky_h, kz_h, kl_h, fx_h, rs_h, nc_h, la_h = fetch(torch.stack([
-            kx, ky, kz, kl, fxk, restart.to(dtype), ssn.ncomp.to(dtype),
-            ssn.last.to(dtype)]))
+            t.to(torch.float64) for t in (kx, ky, kz, kl, fxk, restart,
+                                          ssn.ncomp, ssn.last)]))
         avg = ssn.it_sum // max(ssn.it, 1) if ssn.it > 0 else -1
         metrics = Outer2Metrics(
             kkt_x=kx_h, kkt_y=ky_h, kkt_z=kz_h, kkt_l=kl_h, fxk=fx_h,
@@ -302,7 +315,7 @@ def make_class2_step(prob: Class2Problem, opts: APDOptions,
     return outer_step
 
 
-def _polish(prob: Class2Problem, X, us, lam):
+def _polish(prob: Class2Problem, X, us, lam, acc=None):
     """Feasibility polish and an honest re-measurement of the full KKT
     (the tail safeguard; see ``operators.feasibility_polish``).  The
     rounding is dual-aware.  Returns ``(X, us, kkt, fx)`` with ``kkt``
@@ -310,9 +323,10 @@ def _polish(prob: Class2Problem, X, us, lam):
     n = prob.n
     p, q, C, Phi, b = prob.p, prob.q, prob.C, prob.Phi, prob.b
     Xp, yp, zp = op.feasibility_polish(X, us[:n], us[n:], p, q, Phi, b,
-                                       lam=lam)
-    k = op.kkt_class2(Xp, yp, zp, lam, C, b, p, q, Phi)
-    got = fetch(torch.stack([*k, op.vdot_hi(C, Xp)]))
+                                       lam=lam.to(X.dtype))
+    k = op.kkt_class2(Xp, yp, zp, lam, C, b, p, q, Phi, acc)
+    got = fetch(torch.stack([t.to(torch.float64)
+                             for t in (*k, op.vdot_hi(C, Xp, acc))]))
     return Xp, torch.cat([yp, zp]), np.asarray(got[:4]), got[4]
 
 
@@ -330,13 +344,15 @@ def solve_class2(prob: Class2Problem, opts: APDOptions | None = None,
     n = prob.n
     C = prob.C
     dtype, dev = C.dtype, C.device
+    hi, acc = hi_dtypes(dtype)
 
     ws = warmup_class2(prob, opts.warmup.maxit)
-    X, lam = ws.X, ws.lam
+    X, lam = ws.X, ws.lam.to(hi)
     us = torch.cat([ws.y, ws.z])
     k0 = op.kkt_class2(X, ws.y, ws.z, lam, C, prob.b, prob.p, prob.q,
-                       prob.Phi)
-    got = fetch(torch.stack([*k0, op.vdot_hi(C, X)]))
+                       prob.Phi, acc)
+    got = fetch(torch.stack([t.to(torch.float64)
+                             for t in (*k0, op.vdot_hi(C, X))]))
     kkt0 = np.asarray(got[:4])
     VX, vs = X, us
 
@@ -377,7 +393,7 @@ def solve_class2(prob: Class2Problem, opts: APDOptions | None = None,
         if (opts.feas_polish
                 and (kk[:3] / (1 + kkt0[:3])).max() <= opts.kkt_tol):
             # Complementarity at target, feasibility the sole straggler.
-            Xp, usp, kkp, fxp = _polish(prob, X, us, lam)
+            Xp, usp, kkp, fxp = _polish(prob, X, us, lam, acc)
             if verbose:
                 print(f"POLISH it={k} kkt={kkp[0]:.2e}/{kkp[1]:.2e}/"
                       f"{kkp[2]:.2e}/{kkp[3]:.2e} "

@@ -5,10 +5,14 @@ The constraint matrix ``A = [I_n (x) p^T ; q^T (x) I_m]`` is applied on the
 outer-product update.  Dual vectors are flat ``(n + m,)`` tensors with the
 ``n`` block first (reference layout ``y = [r-part; l-part]``).
 
-The port runs f64 throughout, so the JAX package's TPU workarounds
-(chunked reductions for emulated f64, ``out_dtype`` high-precision
-accumulation) are plain f64 torch reductions here: ``vdot_hi`` and
-``norm_hi`` keep their names, and ``sum_chunked`` is ``torch.sum``.  The
+``out_dtype`` asks for the reductions into the dual space in a higher
+precision: with an fp32 plan the loop drivers carry the dual state and
+every O(mn) reduction in f64, as the JAX package does.  The operands are
+cast before the multiply (an f32*f32 product is exact in f64), so this
+is the JAX package's f64-accumulated product up to the order of the
+sums; the cast of an ``(m, n)`` operand is a temporary f64 copy of it.
+The chunked reductions the JAX package needs for the TPU's emulated f64
+are plain torch reductions here (``sum_chunked`` is ``torch.sum``).  The
 Class-2 operators act on the partial-OT primal ``(X, y, z)`` through
 ``H = [G, IY, IZ]`` with ``G = [A; phi^T]`` and an ``(n + m + 1,)`` dual.
 """
@@ -23,19 +27,30 @@ def split_dual(y: torch.Tensor, n: int):
     return y[:n], y[n:]
 
 
-def apply_A(X: torch.Tensor, p: torch.Tensor, q: torch.Tensor):
-    """``A @ vec(X)`` = ``[X^T p; X q]`` (reference ``Ax.m``)."""
+def _hi(out_dtype, *ts):
+    """``ts`` cast to ``out_dtype`` (unchanged when it is None)."""
+    return ts if out_dtype is None else tuple(t.to(out_dtype) for t in ts)
+
+
+def apply_A(X: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
+            out_dtype=None):
+    """``A @ vec(X)`` = ``[X^T p; X q]`` (reference ``Ax.m``), accumulated
+    in ``out_dtype`` when given."""
+    X, p, q = _hi(out_dtype, X, p, q)
     return torch.cat([X.T @ p, X @ q])
 
 
-def vdot_hi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Dot product of two tensors of any shape, flattened."""
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+def vdot_hi(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """Dot product of two tensors of any shape, flattened, accumulated in
+    ``out_dtype`` when given."""
+    a, b = _hi(out_dtype, a.reshape(-1), b.reshape(-1))
+    return torch.dot(a, b)
 
 
-def norm_hi(a: torch.Tensor) -> torch.Tensor:
-    """2-norm of a tensor of any shape, flattened."""
-    return torch.sqrt(vdot_hi(a, a))
+def norm_hi(a: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """2-norm of a tensor of any shape, flattened, accumulated in
+    ``out_dtype`` when given."""
+    return torch.sqrt(vdot_hi(a, a, out_dtype))
 
 
 def apply_At(y: torch.Tensor, p: torch.Tensor, q: torch.Tensor):
@@ -116,11 +131,14 @@ def inv_hht(v: torch.Tensor, p: torch.Tensor, q: torch.Tensor, sg,
 
 
 def apply_H(X: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
-            p: torch.Tensor, q: torch.Tensor, Phi: torch.Tensor):
+            p: torch.Tensor, q: torch.Tensor, Phi: torch.Tensor,
+            out_dtype=None):
     """``H @ (vec(X), y, z)`` = ``[A vec(X) + [y; z]; <phi, x>]``
-    (reference ``Class2/APD_SsN_Class2.m:60``)."""
-    top = apply_A(X, p, q) + torch.cat([y, z])
-    return torch.cat([top, vdot_hi(Phi, X)[None]])
+    (reference ``Class2/APD_SsN_Class2.m:60``), accumulated in
+    ``out_dtype`` when given."""
+    yz, = _hi(out_dtype, torch.cat([y, z]))
+    top = apply_A(X, p, q, out_dtype) + yz
+    return torch.cat([top, vdot_hi(Phi, X, out_dtype)[None]])
 
 
 def apply_Ht(lam: torch.Tensor, p: torch.Tensor, q: torch.Tensor,
@@ -223,26 +241,34 @@ def feasibility_polish(X: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
     return X, y, z
 
 
-def kkt_class1(X, lam, C, b, p, q, gama):
+def kkt_class1(X, lam, C, b, p, q, gama, out_dtype=None):
     """Primal/dual KKT residual norms for Class 1
     (reference ``Class1/APD_SsN_Class1.m:63-65``)::
 
         KKT(lam) = || A x - b ||
         KKT(x)   = || x - prox(x - c - A^T lam) ||
-    """
-    kkt_l = torch.linalg.vector_norm(apply_A(X, p, q) - b)
-    R = X - prox_box(X - C - apply_At(lam, p, q), gama)
-    return norm_hi(R), kkt_l
+
+    ``lam`` may be in a higher precision than the plan; the plan-space
+    algebra runs in the plan's precision, and the norms accumulate in
+    ``out_dtype`` when given."""
+    hb, = _hi(out_dtype, b)
+    kkt_l = torch.linalg.vector_norm(apply_A(X, p, q, out_dtype) - hb)
+    R = X - prox_box(X - C - apply_At(lam.to(X.dtype), p, q), gama)
+    return norm_hi(R, out_dtype), kkt_l
 
 
-def kkt_class2(X, y, z, lam, C, b, p, q, Phi):
+def kkt_class2(X, y, z, lam, C, b, p, q, Phi, out_dtype=None):
     """Four KKT residual norms ``(x, y, z, lam)`` for Class 2
-    (reference ``Class2/APD_SsN_Class2.m:56-59``)."""
+    (reference ``Class2/APD_SsN_Class2.m:56-59``), with the precisions of
+    :func:`kkt_class1`."""
     n = q.shape[0]
-    kkt_l = torch.linalg.vector_norm(apply_H(X, y, z, p, q, Phi) - b)
+    hb, = _hi(out_dtype, b)
+    kkt_l = torch.linalg.vector_norm(apply_H(X, y, z, p, q, Phi, out_dtype)
+                                     - hb)
+    lam = lam.to(X.dtype)
     lam_n, lam_m = lam[:n], lam[n:n + X.shape[0]]
-    kkt_z = norm_hi(z - prox_nonneg(z - lam_m))
-    kkt_y = norm_hi(y - prox_nonneg(y - lam_n))
+    kkt_z = norm_hi(z - prox_nonneg(z - lam_m), out_dtype)
+    kkt_y = norm_hi(y - prox_nonneg(y - lam_n), out_dtype)
     Gt, _ = apply_Ht(lam, p, q, Phi)
-    kkt_x = norm_hi(X - prox_nonneg(X - C - Gt))
+    kkt_x = norm_hi(X - prox_nonneg(X - C - Gt), out_dtype)
     return kkt_x, kkt_y, kkt_z, kkt_l

@@ -1,6 +1,7 @@
 """Parity of otamg_torch.amg (graph algorithms, generic and bipartite
 hierarchies, cycles, amg_solve) and otamg_torch.hybrid with the JAX
-package, on the CPU in f64.  Hierarchies are compared level for level;
+package, on the CPU in f64 (and the mixed-precision Newton solver on one
+system; ``tests/test_torch_precision.py`` holds the rest of it).  Hierarchies are compared level for level;
 the cycle and the solve run on one hierarchy carried across through
 otamg_torch.interop, so they see identical state."""
 
@@ -290,6 +291,21 @@ def test_hybrid_newton_solve(ssn_state, bigph):
 
 
 def test_mixed_precision_not_ported(ssn_state):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        thyb.make_hybrid_amg_solver(T(ssn_state["p"]), T(ssn_state["q"]),
-                                    AMG_T, solve_dtype="float32")
+    """The mixed-precision solver (``solve_dtype="float32"``: fp32
+    hierarchy, f64 refinement) on the same Newton system: the solution
+    to 1e-9 of the JAX package's, both at the refinement target."""
+    s = ssn_state
+    key = jax.random.PRNGKey(3)
+    sj = jhyb.make_hybrid_amg_solver(jnp.asarray(s["p"]), jnp.asarray(s["q"]),
+                                     AMG_J, solve_dtype="float32")(
+        jnp.asarray(s["S"]), jnp.asarray(s["tvec"]), s["bk1"], s["tk"],
+        jnp.asarray(s["rhs"]), key)
+    st = thyb.make_hybrid_amg_solver(T(s["p"]), T(s["q"]), AMG_T,
+                                     solve_dtype="float32")(
+        T(s["S"]), T(s["tvec"]), torch.tensor(s["bk1"], dtype=torch.float64),
+        torch.tensor(s["tk"], dtype=torch.float64), T(s["rhs"]),
+        interop.key(key))
+    assert st.zeta.dtype == torch.float64
+    assert float(sj.res) < AMG_J.retol and float(st.res) < AMG_T.retol
+    close(st.zeta, sj.zeta, 1e-9, "mixed Newton zeta")
+    assert (int(st.ncomp), int(st.last)) == (int(sj.ncomp), int(sj.last))
