@@ -9,6 +9,8 @@ port's runs on the card.
                                               [--verbose] [--solve-dtype
                                               float32] [--dtype float32]
     JAX_PLATFORMS=cpu python cpu_reference.py --grid 64 [--maxit 30]
+    JAX_PLATFORMS=cpu python cpu_reference.py --sparse-setup 1048576 [--port]
+    JAX_PLATFORMS=cpu python cpu_reference.py --cli
 
 ``--size``: solves ``random_class1(PRNGKey(0), size, size)`` with the
 options ``chip_smoke.py`` gives the port (AMG inner solver, F-cycle,
@@ -39,6 +41,19 @@ polish on.
 ELL CSR, ``AMGOptions(maxit=--maxit)``, 100 by default, right-hand side
 from ``default_rng(0)``), by the JAX package and by the port on the CPU;
 one JSON line with each one's iterations and relative residual.
+
+``--sparse-setup N``: the sparse-setup AMG solve ``chip_smoke.py`` runs
+on the card: the 1-D Laplacian + 0.01 I of N rows as an ELL CSR (cap 3),
+``setup_hierarchy_sparse(agg=2, dense_crossover=1024)`` and
+``amg_solve`` with ``AMGOptions(cycle=F, maxit=60, retol=1e-10,
+coarse_target=64)``, right-hand side from ``default_rng(3)``; one JSON
+line with the level sizes, iterations, relative residual and the setup
+and solve seconds (``--port``: the port's solve on the CPU).
+
+``--cli``: the JAX package's CLI reports that ``chip_smoke.py``'s cli
+phase is held to (``CLI_REF``), one JSON line: ``python -m otamg.cli
+class1 --m 256 --n 256 --inner amg --cycle f`` and ``class2 --m 128 --n
+128 --inner amg --cycle f``, each run as a subprocess on the CPU.
 """
 
 from __future__ import annotations
@@ -64,8 +79,16 @@ def main() -> None:
     ap.add_argument("--dtype", default="float64",
                     choices=["float64", "float32"])
     ap.add_argument("--maxit", type=int, default=100)
+    ap.add_argument("--sparse-setup", type=int, default=0)
+    ap.add_argument("--cli", action="store_true")
     args = ap.parse_args()
     jax.config.update("jax_enable_x64", True)
+    if args.cli:
+        cli_reference()
+        return
+    if args.sparse_setup:
+        sparse_setup_reference(args.sparse_setup, args.port)
+        return
     if args.grid:
         grid_reference(args.grid, args.maxit)
         return
@@ -239,6 +262,70 @@ def grid_reference(nx: int, maxit: int) -> None:
         "port_seconds": tt,
         "x_rel_diff": float(np.abs(np.asarray(rj.x) - rt.x.numpy()).max()
                             / np.abs(np.asarray(rj.x)).max())}))
+
+
+def sparse_setup_reference(N: int, port: bool) -> None:
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    import chip_smoke
+
+    A = chip_smoke.laplacian_1d_csr(N, 0.01, torch.float64, "cpu")
+    b = np.random.default_rng(3).standard_normal(N)
+    t0 = time.perf_counter()
+    if port:
+        from otamg_torch.amg import hierarchy as h
+        from otamg_torch.random import PRNGKey
+
+        lv0, rest = h.setup_hierarchy_sparse(
+            A, chip_smoke.sparse_setup_opts(), PRNGKey(0), agg=2,
+            dense_crossover=1024)
+        t1 = time.perf_counter()
+        res = h.amg_solve(lv0, rest, torch.as_tensor(b), torch.zeros(
+            N, dtype=torch.float64), chip_smoke.sparse_setup_opts())
+        x = res.x.numpy()
+    else:
+        from otamg.amg import hierarchy as h
+        from otamg.config import AMGOptions, Cycle
+        from otamg.sparse import CSR
+
+        opts = AMGOptions(cycle=Cycle.F, maxit=60, retol=1e-10,
+                          coarse_target=64)
+        csr = CSR((N, N), *(jnp.asarray(t.numpy()) for t in (
+            A.indptr, A.ell_cols, A.ell_vals)))
+        lv0, rest = h.setup_hierarchy_sparse(csr, opts,
+                                             jax.random.PRNGKey(0), agg=2,
+                                             dense_crossover=1024)
+        t1 = time.perf_counter()
+        res = h.amg_solve(lv0, rest, jnp.asarray(b), jnp.zeros(N), opts)
+        x = np.asarray(res.x)
+    t2 = time.perf_counter()
+    print(json.dumps({
+        "N": N, "backend": "port-cpu" if port else jax.default_backend(),
+        "levels": [int(h._lvl_size(lv)) for lv in (lv0, *rest)],
+        "iters": int(res.iters), "rel_res": float(res.rel_res),
+        "x_head": [float(v) for v in x[:4]],
+        "setup_seconds": t1 - t0, "solve_seconds": t2 - t1}))
+
+
+def cli_reference() -> None:
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OTAMG_NO_COMPILE_CACHE="1")
+    out = {}
+    for name, argv in (("class1", ["class1", "--m", "256", "--n", "256",
+                                   "--inner", "amg", "--cycle", "f"]),
+                       ("class2", ["class2", "--m", "128", "--n", "128",
+                                   "--inner", "amg", "--cycle", "f"])):
+        run = subprocess.run([sys.executable, "-m", "otamg.cli", *argv],
+                             capture_output=True, text=True, env=env,
+                             check=False)
+        out[name] = json.loads(run.stdout.strip().splitlines()[-1])
+        out[name]["rc"] = run.returncode
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

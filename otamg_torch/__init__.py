@@ -1,8 +1,10 @@
 """otamg_torch — the PyTorch/CUDA port of ``otamg``.
 
 The same layers as the JAX package, module for module (``ot/``,
-``opt/``, ``krylov/``, ``amg/``, ``hybrid/``, ``sparse/``), with
-hand-written CUDA kernels for Hopper under ``csrc/``.  Problems are f64 by
+``opt/``, ``krylov/``, ``amg/``, ``hybrid/``, ``sparse/``, ``diag/``,
+the CLI ``python -m otamg_torch.cli``, and of ``dist/`` only the ELL
+duplicate merge), with hand-written CUDA kernels for Hopper under
+``csrc/``.  Problems are f64 by
 default; ``APDOptions(solve_dtype="float32")`` runs the AMG hierarchy in
 fp32 with f64 refinement, and an fp32 plan keeps its dual state and
 reductions in f64.  Entry points run on CUDA unless the caller names

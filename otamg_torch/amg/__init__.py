@@ -5,6 +5,7 @@ from otamg_torch.amg.graph import (  # noqa: F401
     strength_dense,
 )
 from otamg_torch.amg.hierarchy import (  # noqa: F401
+    AggCSRLevel,
     BipartiteLevel,
     CSRLevel,
     DenseLevel,
@@ -13,4 +14,5 @@ from otamg_torch.amg.hierarchy import (  # noqa: F401
     make_cycle,
     setup_hierarchy,
     setup_hierarchy_generic,
+    setup_hierarchy_sparse,
 )

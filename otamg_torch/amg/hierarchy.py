@@ -7,7 +7,9 @@
   block Gauss-Seidel smoother and the level-1 ideal interpolation are
   GEMVs/GEMMs on ``E``.  The generic hierarchy instead starts from a dense
   level or, for a sparse operator, a :class:`CSRLevel` whose matvecs run
-  the ELL SpMV kernel.
+  the ELL SpMV kernel.  The sparse-setup hierarchy
+  (:func:`setup_hierarchy_sparse`) adds :class:`AggCSRLevel` levels
+  below it, whose matvecs run the same kernel.
 * **Coarse levels are capacity-padded dense.**  Each level has a static
   capacity with an activity mask, as in the JAX package, so the two
   packages' level arrays compare shape for shape.
@@ -23,8 +25,8 @@
   coarse solve project it out, and the f64 algebra around the solve
   (``otamg_torch.hybrid.solver.build_he_solver``) handles it exactly.
 
-The sharded and aggregation levels and ``setup_hierarchy_sparse`` are
-later slices.
+The row-sharded fine level (``HaloCSRLevel``) waits for the port of
+``otamg.dist``.
 """
 
 from __future__ import annotations
@@ -86,11 +88,28 @@ class CSRLevel(NamedTuple):
     xx: torch.Tensor        # (N,)
 
 
+class AggCSRLevel(NamedTuple):
+    """Sparse level of the sparse-setup hierarchy, made by consecutive-
+    block aggregation of its parent (:func:`setup_hierarchy_sparse`): the
+    fields of :class:`CSRLevel` plus the aggregation factor ``agg`` of the
+    transfer from the parent.  Restriction is a block row-sum and
+    prolongation a repeat, so no interpolation matrix is formed."""
+
+    ell_cols: torch.Tensor  # (N, row_cap) int32 padded column indices
+    ell_vals: torch.Tensor  # (N, row_cap) padded values
+    dg: torch.Tensor        # (N,) diagonal of A
+    labels: torch.Tensor    # (N,) component labels
+    nsp: torch.Tensor       # (N,) near-singular mask
+    Axi: torch.Tensor       # (N,)
+    xx: torch.Tensor        # (N,)
+    agg: int                # aggregation factor from the parent level
+
+
 def _lvl_size(lv) -> int:
     """Node count of a level object of any type."""
     if isinstance(lv, BipartiteLevel):
         return lv.g.shape[0]
-    if isinstance(lv, CSRLevel):
+    if isinstance(lv, (CSRLevel, AggCSRLevel)):
         return lv.dg.shape[0]
     return lv.A.shape[0]
 
@@ -100,8 +119,8 @@ def _lvl_size(lv) -> int:
 # ---------------------------------------------------------------------------
 
 
-def csr_matvec(lv: CSRLevel, v: torch.Tensor) -> torch.Tensor:
-    """Fine-level SpMV; on a card every call launches the ELL kernel,
+def csr_matvec(lv: CSRLevel | AggCSRLevel, v: torch.Tensor) -> torch.Tensor:
+    """Sparse-level SpMV; on a card every call launches the ELL kernel,
     whatever the dtype or size."""
     return ell_spmv(lv.ell_cols, lv.ell_vals, v)
 
@@ -153,7 +172,7 @@ def _level0_ops(lv):
     """(matvec, smooth_apply) pair for a level object of any type."""
     if isinstance(lv, BipartiteLevel):
         return bip_matvec, bip_smooth_apply
-    if isinstance(lv, CSRLevel):
+    if isinstance(lv, (CSRLevel, AggCSRLevel)):
         return csr_matvec, csr_smooth_apply
     return dense_matvec, dense_smooth_apply
 
@@ -455,6 +474,97 @@ def setup_hierarchy_generic(A, opts: AMGOptions, key: torch.Tensor,
     return head, chain[1:]
 
 
+def _agg_galerkin_ell(cols, vals, k: int, out_cap: int):
+    """Galerkin product for unit consecutive-block aggregation on ELL:
+    with ``P[i, i // k] = 1`` every fine entry ``(i, j, v)`` maps to the
+    coarse entry ``(i // k, j // k, v)``: rows grouped ``k`` at a time,
+    columns divided, duplicates merged.  Returns ``(cols, vals,
+    ngroups_max, Nc)``."""
+    from otamg_torch.dist.assembly import ell_row_sum_duplicates
+
+    N, rc = cols.shape
+    Nc = -(-N // k)
+    pad = Nc * k - N
+    if pad:
+        cols = torch.nn.functional.pad(cols, (0, 0, 0, pad))
+        vals = torch.nn.functional.pad(vals, (0, 0, 0, pad))
+    gc = (cols // k).reshape(Nc, k * rc)
+    gv = vals.reshape(Nc, k * rc)
+    out_c, out_v, ngmax = ell_row_sum_duplicates(gc, gv, out_cap)
+    return out_c, out_v, ngmax, Nc
+
+
+def setup_hierarchy_sparse(csr, opts: AMGOptions, key: torch.Tensor,
+                           agg: int = 2, dense_crossover: int = 1024):
+    """Sparse-setup hierarchy for large SPD operators (``N >~ 1e5``),
+    where the generic path's setup-time densification
+    (:func:`setup_hierarchy_generic`) no longer fits memory.
+
+    Above ``dense_crossover`` the operator is coarsened by unit
+    consecutive-block aggregation (factor ``agg``): the Galerkin product
+    is an ELL reshape and merge (:func:`_agg_galerkin_ell`), restriction
+    a block row-sum and prolongation a repeat, an O(nnz) setup.  At or
+    below the crossover the operator is densified and the reference
+    MIS/standard-interpolation chain (``transfer.m:41-66``) takes over,
+    ending in the eigensolved coarse level.  Meant for Laplacian-like
+    banded operators with a trivial near-kernel: labels and ``nsp`` are
+    not tracked through the aggregation levels.  Every matvec of the
+    fine :class:`CSRLevel` and of each :class:`AggCSRLevel` runs the ELL
+    SpMV kernel.  Raises ``ValueError`` when an aggregated row holds
+    more distinct columns than its capacity (the operator is not banded
+    enough)."""
+    cols, vals = csr.ell_cols, csr.ell_vals
+    N = cols.shape[0]
+    dtype, dev = vals.dtype, vals.device
+
+    def mk_sparse_level(c, v, n, k):
+        z = torch.zeros(n, dtype=torch.int64, device=dev)
+        f = torch.zeros(n, dtype=torch.bool, device=dev)
+        one = torch.ones(n, dtype=dtype, device=dev)
+        hit = c == torch.arange(n, dtype=c.dtype, device=dev)[:, None]
+        dg = (v * hit).sum(dim=1)
+        if k is None:
+            return CSRLevel(c, v, dg, z, f, one, one)
+        return AggCSRLevel(c, v, dg, z, f, one, one, k)
+
+    head = mk_sparse_level(cols, vals, N, None)
+    chain: list = []
+    c, v, n = cols, vals, N
+    while n > dense_crossover:
+        out_cap = c.shape[1] + 2
+        c, v, ngmax, n = _agg_galerkin_ell(c, v, agg, out_cap)
+        ngmax = int(fetch(ngmax))
+        if ngmax > out_cap:
+            raise ValueError(
+                f"aggregation Galerkin overflow: {ngmax} distinct coarse "
+                f"columns > capacity {out_cap} (operator not banded enough "
+                f"for the sparse path)")
+        if n > dense_crossover:
+            chain.append(mk_sparse_level(c, v, n, agg))
+
+    # Densify the crossover operator and hand over to the dense chain.
+    rows = torch.arange(n, device=dev)[:, None].expand(c.shape)
+    Ad = torch.zeros(n, n, dtype=dtype, device=dev).index_put_(
+        (rows, c.long()), v, accumulate=True)
+    caps = [n]
+    target = (opts.coarse_target if opts.coarse_target is not None
+              else _coarse_target(N))
+    while caps[-1] > target and len(caps) < opts.max_levels:
+        caps.append(int(math.ceil(opts.coarsen_ratio * caps[-1])))
+    dchain = list(_build_dense_chain(
+        Ad, torch.ones(n, dtype=torch.bool, device=dev),
+        torch.zeros(n, dtype=torch.int64, device=dev),
+        torch.zeros(n, dtype=torch.bool, device=dev), caps, opts, key, n))
+    # The dense head's transfer from the last sparse level is the unit
+    # aggregation matrix (at most agg * crossover rows); the identity
+    # when no aggregation happened (N already at the crossover).
+    nf_prev = _lvl_size(chain[-1]) if chain else N
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    P_agg = eye if nf_prev == n else eye.repeat_interleave(agg, 0)[:nf_prev]
+    dchain[0] = dchain[0]._replace(P=P_agg)
+    return head, tuple(chain) + tuple(dchain)
+
+
 def _coarsen_dense(A, active, labels, nsp, cap_next: int,
                    opts: AMGOptions, key: torch.Tensor, nseg: int):
     """One MIS + standard-interpolation + Galerkin coarsening step
@@ -612,12 +722,21 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
             if l == 0 and bip0:
                 n = lv1.W.shape[0]
                 return rr[n:] + lv1.W.T @ rr[:n]
-            return levels[l + 1].P.T @ rr
+            child = levels[l + 1]
+            if isinstance(child, AggCSRLevel):
+                # Consecutive-block aggregation: P^T is a block row-sum.
+                k, nc = child.agg, child.dg.shape[0]
+                rr = torch.nn.functional.pad(rr, (0, nc * k - rr.shape[0]))
+                return rr.view(nc, k).sum(dim=1)
+            return child.P.T @ rr
 
         def prolong(l, ec):
             if l == 0 and bip0:
                 return torch.cat([lv1.W @ ec, ec])
-            return levels[l + 1].P @ ec
+            child = levels[l + 1]
+            if isinstance(child, AggCSRLevel):
+                return ec.repeat_interleave(child.agg)[:_lvl_size(levels[l])]
+            return child.P @ ec
 
         es = [torch.zeros(_lvl_size(lv), dtype=r0.dtype, device=r0.device)
               for lv in levels]
@@ -739,10 +858,12 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
 
     def build_deep(lv1, dense: Sequence[DenseLevel], dtype):
         """The deep sub-tape as a ``(cap1, cap1)`` matrix, or None when
-        fusing cannot pay (fewer than 2 dense levels) or the coarse solve
-        is PCG; the full tape then runs (the same linear map)."""
+        fusing cannot pay (fewer than 2 dense levels), a deep level is
+        sparse or the coarse solve is PCG; the full tape then runs (the
+        same linear map)."""
         del lv1
         if not can_fuse or not coarse_direct \
+                or not all(isinstance(lv, DenseLevel) for lv in dense) \
                 or dense[-1].evecs.shape[0] == 0:
             return None
         return _deep_algebraic(dense, dtype)

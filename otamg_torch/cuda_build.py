@@ -37,16 +37,24 @@ def _nvcc() -> str:
                        "CUDA toolkit on the machine with the card")
 
 
+def stale() -> list[Path]:
+    """The sources whose library is missing or older than the source."""
+    out = []
+    for src in sorted(CSRC.glob("*.cu")):
+        lib = BUILD / f"lib{src.stem}.so"
+        if not (lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime):
+            out.append(src)
+    return out
+
+
 def build_all(verbose: bool = False) -> float:
     """Compile every stale source in parallel; returns the seconds spent.
     Raises with the compiler's output when a build fails."""
     t0 = time.perf_counter()
     BUILD.mkdir(exist_ok=True)
     procs = []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in stale():
         out = BUILD / f"lib{src.stem}.so"
-        if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
-            continue
         tmp = BUILD / f".lib{src.stem}.{os.getpid()}.so"
         cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
                "-o", str(tmp), str(src)]

@@ -1,1 +1,2 @@
-from otamg_torch.krylov.pcg import PCGResult, pcg  # noqa: F401
+from otamg_torch.krylov.pcg import (PCGResult, make_preconditioner,  # noqa: F401
+                                    pcg, pcg_matrix)

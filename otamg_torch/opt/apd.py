@@ -17,8 +17,10 @@ inside the SsN loop) and every O(mn) reduction into the dual space
 the plan-space arrays and the Newton system stay fp32, as in the JAX
 package with ``jax_enable_x64``.
 
-Not in this slice: ``solve_class1_chunked``, ``solve_class1_fused``,
-checkpointing and ``explicit_dist``.
+``solve_class1`` checkpoints its state every ``checkpoint_every`` outer
+iterations and resumes from the latest checkpoint onto the uninterrupted
+trajectory (:mod:`otamg_torch.diag.checkpoint`).  ``explicit_dist``
+raises; the chunked and fused drivers are not ported.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ class SolveResult:
     fail_count: int
     wall_time: float
     inner_total: int = 0       # total inner-solver iterations
+    state: tuple | None = None  # (X, V, lam, bk, key) when requested
     info_ncomp: np.ndarray | None = None  # per-outer info[0] (num_comp)
     info_last: np.ndarray | None = None   # per-outer info[1] (it_num)
 
@@ -265,10 +268,21 @@ def make_class1_step(prob: Class1Problem, opts: APDOptions,
 def solve_class1(prob: Class1Problem, opts: APDOptions = APDOptions(),
                  solver: NewtonSolver | None = None,
                  warm: tuple | None = None,
-                 verbose: bool = False) -> SolveResult:
+                 verbose: bool = False,
+                 checkpoint_dir: str | None = None,
+                 checkpoint_every: int = 10,
+                 resume: bool = False,
+                 return_state: bool = False) -> SolveResult:
     """End-to-end Class-1 solve: A-ADMM warm start + APD-SsN to the
     relative KKT tolerance (``KKT_Tol = 1e-6``,
-    ``Class1/APD_SsN_Class1.m:35,264-268``), on the device of ``prob``."""
+    ``Class1/APD_SsN_Class1.m:35,264-268``), on the device of ``prob``.
+
+    With ``checkpoint_dir`` the state ``(X, V, lam, bk, key, k, resk)`` is
+    saved after every ``checkpoint_every``-th outer iteration; with
+    ``resume`` the solve restarts from the latest checkpoint there (if
+    any) at iteration ``k + 1``, and its trajectory equals the
+    uninterrupted one.  The records of a resumed solve start at the warm
+    start and go on from ``k + 1``."""
     t0 = time.perf_counter()
     C = prob.C
     dtype, dev = C.dtype, C.device
@@ -288,6 +302,19 @@ def solve_class1(prob: Class1Problem, opts: APDOptions = APDOptions(),
     key = jr.PRNGKey(opts.seed)
     bk = torch.ones((), dtype=dtype, device=dev)
     resk = torch.tensor(max(kx0, kl0), dtype=dtype, device=dev)
+    k_start = 1
+    if resume and checkpoint_dir is not None:
+        from otamg_torch.diag import checkpoint as ckpt
+
+        if ckpt.latest_step(checkpoint_dir) is not None:
+            # The warm-start state is the template: each array returns
+            # on its device and in its dtype.
+            st = ckpt.load_state(checkpoint_dir, template=dict(
+                X=X, V=X, lam=lam, bk=bk, key=key, resk=resk))
+            X, V, lam, bk, key = st.X, st.V, st.lam, st.bk, st.key
+            k_start = st.k + 1
+            if st.resk is not None:
+                resk = st.resk
 
     kkt_x, kkt_l, fxk = [kx0], [kl0], [fx0]
     ssn_itnum, solver_itnum, restarts = [], [], []
@@ -295,7 +322,7 @@ def solve_class1(prob: Class1Problem, opts: APDOptions = APDOptions(),
     fail_total = inner_total = 0
     converged = False
     k_final = opts.maxit
-    for k in range(1, opts.maxit + 1):
+    for k in range(k_start, opts.maxit + 1):
         X, V, lam, bk, key, resk, mtr = step(k, X, V, lam, bk, key, resk,
                                              kkt_norm0)
         kkt_x.append(mtr.kkt_x)
@@ -317,6 +344,11 @@ def solve_class1(prob: Class1Problem, opts: APDOptions = APDOptions(),
             converged = True
             k_final = k
             break
+        if checkpoint_dir is not None and k % checkpoint_every == 0:
+            from otamg_torch.diag import checkpoint as ckpt
+
+            ckpt.save_state(checkpoint_dir,
+                            ckpt.APDState(X, V, lam, bk, key, k, resk))
 
     return SolveResult(
         X=X, lam=lam, converged=converged, iters=k_final,
@@ -325,4 +357,5 @@ def solve_class1(prob: Class1Problem, opts: APDOptions = APDOptions(),
         solver_itnum=np.asarray(solver_itnum),
         restarts=np.asarray(restarts), fail_count=fail_total,
         wall_time=time.perf_counter() - t0, inner_total=inner_total,
+        state=(X, V, lam, bk, key) if return_state else None,
         info_ncomp=np.asarray(info_ncomp), info_last=np.asarray(info_last))

@@ -20,10 +20,8 @@ that read one flag per test, and the outer step reads its metrics once.
 once per SsN step.  Slack blocks ``(y; z)`` travel as one ``(n + m,)``
 vector ``us``.  With an fp32 plan the dual state and the O(mn)
 reductions into the dual space are f64, as in
-:mod:`otamg_torch.opt.apd`.
-
-Not in this slice: ``solve_class2_chunked``, ``solve_class2_fused`` and
-checkpointing (ROADMAP Queue 1 items 12 and 13).
+:mod:`otamg_torch.opt.apd`.  ``solve_class2`` checkpoints and resumes as
+``solve_class1`` does; the chunked and fused drivers are not ported.
 """
 
 from __future__ import annotations
@@ -332,12 +330,20 @@ def _polish(prob: Class2Problem, X, us, lam, acc=None):
 
 def solve_class2(prob: Class2Problem, opts: APDOptions | None = None,
                  solver: NewtonSolver | None = None,
-                 verbose: bool = False) -> Solve2Result:
+                 verbose: bool = False,
+                 checkpoint_dir: str | None = None,
+                 checkpoint_every: int = 10,
+                 resume: bool = False) -> Solve2Result:
     """End-to-end Class-2 solve: A-ADMM warm start + APD-SsN to relative
     KKT <= 1e-6 (``Class2/APD_SsN_Class2.m:27,276-280``), on the device
     of ``prob``.  With ``opts.feas_polish``, an iteration whose x/y/z
     residuals are at target while the feasibility residual is not tries
-    :func:`_polish` and accepts it only on full convergence."""
+    :func:`_polish` and accepts it only on full convergence.
+
+    ``checkpoint_dir``, ``checkpoint_every`` and ``resume`` as in
+    :func:`otamg_torch.opt.apd.solve_class1`; the state saved is
+    ``X, us, VX, vs, lam, bk, key`` and ``prev_kkt``, the previous
+    iteration's four raw KKT residuals (the restart heuristic's)."""
     if opts is None:
         opts = default_class2_options()
     t0 = time.perf_counter()
@@ -359,6 +365,19 @@ def solve_class2(prob: Class2Problem, opts: APDOptions | None = None,
     step = make_class2_step(prob, opts, solver)
     key = jr.PRNGKey(opts.seed)
     bk = torch.ones((), dtype=dtype, device=dev)
+    prev = kkt0
+    k_start = 1
+    if resume and checkpoint_dir is not None:
+        from otamg_torch.diag import checkpoint as ckpt
+
+        if ckpt.latest_step(checkpoint_dir) is not None:
+            # The warm-start state is the template (devices and dtypes).
+            d = ckpt.load_dict(checkpoint_dir, template=dict(
+                X=X, us=us, VX=VX, vs=vs, lam=lam, bk=bk, key=key))
+            X, us, VX, vs = d["X"], d["us"], d["VX"], d["vs"]
+            lam, bk, key = d["lam"], d["bk"], d["key"]
+            k_start = d["k"] + 1
+            prev = d["prev_kkt"].numpy()
 
     kkt_hist = [kkt0]
     fxk = [got[4]]
@@ -367,10 +386,10 @@ def solve_class2(prob: Class2Problem, opts: APDOptions | None = None,
     fail_total = inner_total = 0
     converged = polished = False
     k_final = opts.maxit
-    for k in range(1, opts.maxit + 1):
+    for k in range(k_start, opts.maxit + 1):
         X, us, VX, vs, lam, bk, key, mtr = step(k, X, us, VX, vs, lam, bk,
-                                                key, kkt0, kkt_hist[-1])
-        kk = np.asarray([mtr.kkt_x, mtr.kkt_y, mtr.kkt_z, mtr.kkt_l])
+                                                key, kkt0, prev)
+        kk = prev = np.asarray([mtr.kkt_x, mtr.kkt_y, mtr.kkt_z, mtr.kkt_l])
         kkt_hist.append(kk)
         fxk.append(mtr.fxk)
         ssn_itnum.append(mtr.ssn_it)
@@ -405,6 +424,12 @@ def solve_class2(prob: Class2Problem, opts: APDOptions | None = None,
                 converged = polished = True
                 k_final = k
                 break
+        if checkpoint_dir is not None and k % checkpoint_every == 0:
+            from otamg_torch.diag import checkpoint as ckpt
+
+            ckpt.save_dict(checkpoint_dir, k, dict(
+                X=X, us=us, VX=VX, vs=vs, lam=lam, bk=bk, key=key,
+                prev_kkt=prev))
 
     return Solve2Result(
         X=X, y=us[:n], z=us[n:], lam=lam, converged=converged,
