@@ -14,21 +14,33 @@ Phases, each printing one JSON line with its numbers and seconds:
    calls captured in a CUDA graph and replayed), ``host_us`` (the
    wrapper's host time per call), the bound and the share of it reached,
    the plain version's time and a ``torch.sparse_csr_tensor @ x`` call's
-   as a yardstick;
+   as a yardstick; then ``segment_sum`` (the deterministic segment sum
+   of ``otamg_torch/csrc/segment_sum.cu``) against its plain version,
+   ``index_add_``, at the shapes of the paths, with its time beside
+   ``index_add_``'s;
 4. sparse   — ``amg_solve_matrix`` on the 128x128 grid Laplacian + 0.01 I
    as an ELL ``CSR`` (the path that runs the kernel), 30 iterations, with
    its launches, checked against the same solve through the plain SpMV;
 5. class1   — ``solve_class1`` (AMG inner solver, F-cycle, fuse_deep):
    a 24x20 problem checked against ``scipy.optimize.linprog`` and against
-   the port on the CPU, then 500x500 (one cold and two warm runs) and
-   1024x1024 once, with the host reads per outer iteration;
+   the port on the CPU, then 256x256, 500x500 (one cold and two warm
+   runs) and 1024x1024 once, each held to the JAX package's CPU f64 run
+   (``CLASS1_REF``), with the host reads per outer iteration;
 6. class2   — ``solve_class2`` (the same AMG inner solver with the
    Class-2 budget ``maxit=40, smoth=10``, ``ssn_tol1=1e-10``, no
    feasibility polish): ``random_class2(PRNGKey(7), 20, 16,
    mu_frac=0.6)`` with the Class-2 defaults checked against
    ``scipy.optimize.linprog`` and against the port on the CPU, then
-   500x500 (one cold and one warm run) and 1024x1024 once, each held to
-   the JAX package's CPU f64 run (``CLASS2_REF``);
+   500x500 (one cold and one warm run, whose failures and SsN steps are
+   compared with each other) and 1024x1024 once through the chunked
+   driver, each held to the JAX package's CPU f64 run (``CLASS2_REF``);
+   drivers  — the chunked (``chunk=8``) and fused drivers beside the warm
+   loop runs of phases 5 and 6: Class-1 500x500 chunked twice and fused,
+   each with the loop run's iterations, failures and SsN steps, the
+   objective to 1e-10 of it and at most half its host reads per outer
+   iteration; Class-2 500x500 chunked once, with the loop run's
+   iterations and failures; the AMG block's CUDA graph captures and
+   replays per Newton solve;
 7. mixed    — the same Class-1 and Class-2 solves with
    ``solve_dtype="float32"`` (fp32 AMG hierarchy, exact kernel deflation,
    f64 refinement; ``bench.py``'s configuration on an accelerator):
@@ -49,13 +61,15 @@ Phases, each printing one JSON line with its numbers and seconds:
    first aggregation level's shapes;
 10. cli     — ``otamg_torch.cli.main`` in this process: Class 1 256x256
    and Class 2 128x128 (AMG, F-cycle), each uninterrupted, stopped at
-   20 iterations with ``--checkpoint`` and resumed with ``--resume``,
-   held to the JAX package's CLI on the CPU (``CLI_REF``); a
+   20 iterations with ``--checkpoint`` and resumed with ``--resume
+   --driver chunked`` (the loop driver's checkpoint), held to the JAX
+   package's CLI on the CPU (``CLI_REF``); a
    ``--profile`` run whose trace must exist; ``python -m
    otamg_torch.cli info`` as a subprocess.
 
-Then one JSON line listing every kernel, the card's name and power
-limit, and the last line ``{"ok": true, "device": {...}}``.  Any failure
+Then one JSON line listing every kernel (``ell_spmv`` and
+``segment_sum``, each with its launches by path), the card's name and
+power limit, and the last line ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits nonzero; without CUDA the script exits nonzero before
 printing any result.
 """
@@ -327,6 +341,104 @@ def phase_kernels(card, dev):
     return rows
 
 
+def segment_bound(card, L, nseg, dtype):
+    """(bound ms, bound_by): data and int64 labels read once, the result
+    written once; one add per element."""
+    from otamg_torch.diag.roofline import hbm_rate
+
+    s = torch.empty((), dtype=dtype).element_size()
+    t_bytes = (L * (s + 8) + nseg * s) / hbm_rate(card)
+    t_ops = L / _PEAK.get(dtype, _PEAK[torch.float64])
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def segment_shapes(dev, gen):
+    """(name, data, labels, nseg) at the shapes the paths give
+    ``segment_sum``: the bipartite smoother's half-vectors and the
+    component sums of a 500x500 and a 1024x1024 Newton system (one big
+    component and a few small ones), the mixed path's fp32 sweeps, an
+    int64 count, and the sparse-setup smoother's 1,048,576 nodes in one
+    segment (the sorted variant)."""
+    def comps(N, L):
+        lab = torch.zeros(L, dtype=torch.int64, device=dev)
+        lab[L - 8:] = torch.arange(L - 8, L, device=dev)
+        return lab
+
+    for N in (1000, 2048):
+        for L in (N // 2, N):
+            yield (f"components{N}_L{L}",
+                   torch.randn(L, generator=gen, device=dev,
+                               dtype=torch.float64), comps(N, L), N)
+    yield ("components1000_f32", torch.randn(500, generator=gen, device=dev,
+                                             dtype=torch.float32),
+           comps(1000, 500), 1000)
+    yield ("count1000_i64", torch.ones(1000, dtype=torch.int64, device=dev),
+           torch.randint(0, 40, (1000,), generator=gen, device=dev), 1000)
+    yield ("random16384", torch.randn(16384, generator=gen, device=dev,
+                                      dtype=torch.float64),
+           torch.randint(0, 16384, (16384,), generator=gen, device=dev),
+           16384)
+    N = 1 << 20
+    yield ("one_segment_1m", torch.randn(N, generator=gen, device=dev,
+                                         dtype=torch.float64),
+           torch.zeros(N, dtype=torch.int64, device=dev), N)
+
+
+def phase_segment_sum(card, dev):
+    """The deterministic ``segment_sum`` against its plain version
+    (``index_add_``) on the same inputs: equal to the CPU's sums bit for
+    bit where the scan variant runs, within 1e-12 of the terms' absolute
+    sum where the sorted one does, equal to itself across calls; its
+    time (events around 100 calls; ``device_ms`` the same calls as a CUDA
+    graph, which also shows it is capture-safe) beside the plain
+    version's and one ``torch.index_add`` call's (``library_ms``)."""
+    from otamg_torch.sparse.segment import (SCAN_LIMIT, segment_sum,
+                                            segment_sum_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = {}
+    for name, data, labels, nseg in segment_shapes(dev, gen):
+        L = data.shape[0]
+        got = segment_sum(data, labels, nseg)
+        again = segment_sum(data, labels, nseg)
+        plain = segment_sum_plain(data, labels, nseg)
+        cpu = segment_sum_plain(data.cpu(), labels.cpu(), nseg)
+        scale = segment_sum_plain(data.abs(), labels, nseg).double()
+        torch.cuda.synchronize()
+        err = (got.double() - plain.double()).abs()
+        scan = nseg * L <= SCAN_LIMIT
+        # index_add_ on the card rounds in its own order: its sums are
+        # held to the kernel's within ~4 ulp of the terms' absolute sum.
+        rtol = 1e-5 if data.dtype == torch.float32 else 1e-12
+        ok = (torch.equal(got, again)
+              and bool((err <= rtol * scale + 1e-300).all())
+              and (not scan or torch.equal(got.cpu(), cpu)))
+        zeros = torch.zeros(nseg, dtype=data.dtype, device=dev)
+        bound_ms, bound_by = segment_bound(card, L, nseg, data.dtype)
+        ms = cuda_ms(lambda: segment_sum(data, labels, nseg))
+        row = dict(shape=name, L=L, nseg=nseg,
+                   dtype=str(data.dtype).split(".")[-1],
+                   variant="scan" if scan else "sorted", rtol=rtol,
+                   max_abs_err=float(err.max()), equal_to_cpu=(
+                       torch.equal(got.cpu(), cpu)),
+                   repeat_equal=torch.equal(got, again), ms=ms,
+                   device_ms=graph_ms(lambda: segment_sum(data, labels,
+                                                          nseg)),
+                   plain_ms=cuda_ms(lambda: segment_sum_plain(data, labels,
+                                                              nseg)),
+                   library_ms=cuda_ms(lambda: torch.index_add(
+                       zeros, 0, labels, data)),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / ms)
+        emit("segment_sum", **row)
+        if not ok:
+            raise AssertionError(f"segment_sum {name} differs from its "
+                                 "plain version or from itself")
+        rows[name] = row
+    return rows
+
+
 def phase_sparse_amg(dev):
     """The sparse-AMG path: every fine matvec is the ELL kernel."""
     from otamg_torch.amg import hierarchy
@@ -356,8 +468,9 @@ def phase_sparse_amg(dev):
         hierarchy.ell_spmv = ell_spmv
     dx = float((res.x - ref.x).abs().max() / ref.x.abs().max())
     rel = float(res.rel_res)
-    emit("sparse_amg", N=nx * nx, iters=res.iters, rel_res=rel,
-         true_rel_res=true_rel, plain_iters=ref.iters, x_rel_vs_plain=dx,
+    emit("sparse_amg", N=nx * nx, iters=int(res.iters), rel_res=rel,
+         true_rel_res=true_rel, plain_iters=int(ref.iters),
+         x_rel_vs_plain=dx,
          seconds=secs, ell_spmv_launches=launches)
     if dx > 1e-8 or ref.iters != res.iters:
         raise AssertionError(f"kernel and plain solves differ: {dx:.2e}")
@@ -378,6 +491,39 @@ SPARSE_MAXIT = 30
 SPARSE_REL_RES = 1.1e-2
 
 
+# The JAX package's solves on the CPU of random_class1(PRNGKey(0), N, N)
+# with class1_opts() in f64 (cpu_reference.py --size N).
+CLASS1_REF = {
+    256: dict(converged=True, iters=52, fail_count=0,
+              fxk=1.151894055677567),
+    500: dict(converged=True, iters=55, fail_count=0,
+              fxk=1.0810500251100321),
+    1024: dict(converged=True, iters=51, fail_count=0,
+               fxk=1.1383636551928127),
+}
+
+
+def held_to_class1_reference(size, res):
+    """The numbers of a Class-1 f64 solve beside the JAX CPU run's;
+    raises unless ``converged``, the outer iterations and ``fail_count``
+    are equal and the objective agrees to 1e-8."""
+    ref = CLASS1_REF[size]
+    row = dict(converged=res.converged, iters=res.iters,
+               fail_count=res.fail_count, fxk=float(res.fxk[-1]),
+               ssn_total=int(res.ssn_itnum.sum()),
+               inner_total=res.inner_total,
+               fxk_rel_vs_cpu=abs(res.fxk[-1] - ref["fxk"]) / ref["fxk"],
+               cpu=ref)
+    if not (res.converged == ref["converged"] and res.iters == ref["iters"]
+            and res.fail_count == ref["fail_count"]
+            and row["fxk_rel_vs_cpu"] <= 1e-8):
+        emit(f"class1_{size}_mismatch", **row,
+             ssn_itnum=[int(v) for v in res.ssn_itnum])
+        raise AssertionError(f"Class-1 {size}x{size} differs from the JAX "
+                             "CPU f64 run")
+    return row
+
+
 def class1_opts(solve_dtype=None):
     """``bench.py``'s Class-1 options: AMG inner solver, F-cycle,
     fuse_deep, and the Newton solves in ``solve_dtype``."""
@@ -387,7 +533,9 @@ def class1_opts(solve_dtype=None):
                       amg=AMGOptions(cycle=Cycle.F, fuse_deep=True))
 
 
-def run_class1(m, n, dev, opts):
+def run_class1(m, n, dev, opts, solve=None):
+    """(result, seconds, host reads per outer iteration) of ``solve``
+    (the loop driver by default) on ``random_class1(PRNGKey(0), m, n)``."""
     from otamg_torch.device import fetch
     from otamg_torch.opt import solve_class1
     from otamg_torch.ot import random_class1
@@ -397,7 +545,7 @@ def run_class1(m, n, dev, opts):
     torch.cuda.synchronize()
     reads0 = fetch.reads
     t0 = time.perf_counter()
-    res = solve_class1(prob, opts)
+    res = (solve or solve_class1)(prob, opts)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     X = res.X
@@ -441,26 +589,32 @@ def phase_class1(dev):
         raise AssertionError("24x20 solve on the card disagrees with the "
                              "CPU run or with linprog")
 
+    from otamg_torch.sparse.segment import segment_sum
+
     opts = class1_opts()
     runs = {}
+    res, secs, reads = run_class1(256, 256, dev, opts)
+    emit("class1_256", seconds=secs, host_reads_per_outer_iter=reads,
+         **held_to_class1_reference(256, res))
     for label in ("cold", "warm", "warm"):
+        # The main path's launches: the count set to 0 just before the
+        # run and read just after.
+        segment_sum.launches = 0
         res, secs, reads = run_class1(500, 500, dev, opts)
-        if not res.converged:
-            raise AssertionError(f"500x500 {label} run did not converge")
+        launches = segment_sum.launches
         runs.setdefault((500, label), secs)
-        warm = (res, secs)
-        emit("class1_500", run=label, iters=res.iters,
-             fail_count=res.fail_count, fxk=float(res.fxk[-1]),
-             seconds=secs, host_reads_per_outer_iter=reads,
-             inner_total=res.inner_total)
+        warm = (res, secs, reads)
+        emit("class1_500", run=label, seconds=secs,
+             host_reads_per_outer_iter=reads,
+             segment_sum_launches=launches,
+             **held_to_class1_reference(500, res))
+    if launches == 0:
+        raise AssertionError("the Class-1 solve launched no segment_sum")
     res, secs, reads = run_class1(1024, 1024, dev, opts)
-    emit("class1_1024", iters=res.iters, fail_count=res.fail_count,
-         converged=res.converged, fxk=float(res.fxk[-1]), seconds=secs,
-         host_reads_per_outer_iter=reads, inner_total=res.inner_total)
-    if not res.converged:
-        raise AssertionError("1024x1024 run did not converge")
+    emit("class1_1024", seconds=secs, host_reads_per_outer_iter=reads,
+         **held_to_class1_reference(1024, res))
     runs[(1024, "once")] = secs
-    return runs, warm
+    return runs, warm, launches
 
 
 def class2_opts(solve_dtype=None):
@@ -475,7 +629,8 @@ def class2_opts(solve_dtype=None):
                                      fuse_deep=True), feas_polish=False)
 
 
-def run_class2(m, n, dev, opts):
+def run_class2(m, n, dev, opts, solve=None):
+    """As :func:`run_class1`, for ``random_class2(PRNGKey(0), m, n)``."""
     from otamg_torch.device import fetch
     from otamg_torch.opt import solve_class2
     from otamg_torch.ot import random_class2
@@ -485,7 +640,7 @@ def run_class2(m, n, dev, opts):
     torch.cuda.synchronize()
     reads0 = fetch.reads
     t0 = time.perf_counter()
-    res = solve_class2(prob, opts)
+    res = (solve or solve_class2)(prob, opts)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     ok = all(t.shape == s and bool(torch.isfinite(t).all())
@@ -545,21 +700,34 @@ def phase_class2(dev):
                              "with the CPU run or with linprog")
 
     opts = class2_opts()
-    runs = {}
+    runs, loop500 = {}, []
     for label in ("cold", "warm"):
         res, secs, reads = run_class2(500, 500, dev, opts)
         runs[(500, label)] = secs
+        loop500.append((res, secs, reads))
         extra = ({"fxk_trajectory": res.fxk.tolist(),
                   "ssn_itnum": res.ssn_itnum.tolist()}
                  if label == "cold" else {})
         emit("class2_500", run=label, seconds=secs,
              host_reads_per_outer_iter=reads,
              **held_to_reference(500, res), **extra)
-    res, secs, reads = run_class2(1024, 1024, dev, opts)
-    emit("class2_1024", seconds=secs, host_reads_per_outer_iter=reads,
-         **held_to_reference(1024, res))
+    # Two runs of one solve on the card: with the deterministic segment
+    # sum they walk the same path (reported, not held).
+    a, b = loop500[0][0], loop500[1][0]
+    emit("class2_500_repeat", fail_count=[a.fail_count, b.fail_count],
+         iters=[a.iters, b.iters], same_ssn_itnum=bool(
+             np.array_equal(a.ssn_itnum, b.ssn_itnum)),
+         same_fxk=bool(np.array_equal(a.fxk, b.fxk)))
+    # 1024x1024 through the chunked driver (the loop driver's trajectory
+    # in about half its time, phase drivers).
+    from otamg_torch.opt import solve_class2_chunked
+
+    res, secs, reads = run_class2(1024, 1024, dev, opts,
+                                  lambda p, o: solve_class2_chunked(p, o))
+    emit("class2_1024", driver="chunked", seconds=secs,
+         host_reads_per_outer_iter=reads, **held_to_reference(1024, res))
     runs[(1024, "once")] = secs
-    return runs
+    return runs, loop500[1]
 
 
 # The JAX package's solves of random_class2(PRNGKey(0), N, N) with
@@ -613,6 +781,73 @@ def held_to_reference(size, res):
         raise AssertionError(f"Class-2 {size}x{size} differs from the JAX "
                              "CPU f64 run")
     return row
+
+
+def phase_drivers(dev, loop1, loop2):
+    """The chunked (``chunk=8``) and fused drivers beside the loop
+    driver's warm runs of this call (``loop1``: Class-1 500x500,
+    ``loop2``: Class-2 500x500, each ``(result, seconds, reads)``).
+    Class 1: chunked twice (the first captures the AMG block's CUDA
+    graph) and fused, each with the loop run's iterations, failures and
+    SsN steps, ``CLASS1_REF``, the objective to 1e-10 of the loop run's
+    and at most half its host reads per outer iteration.  Class 2:
+    chunked once, with the loop run's iterations and failures and
+    ``CLASS2_REF``.  Reports the graph captures (at most one per tape
+    signature) and replays per Newton solve, and the path's
+    ``segment_sum`` launches."""
+    from otamg_torch.amg.hierarchy import amg_graphs
+    from otamg_torch.opt import (solve_class1_chunked, solve_class1_fused,
+                                 solve_class2_chunked)
+    from otamg_torch.sparse.segment import segment_sum
+
+    chunked1 = lambda p, o: solve_class1_chunked(p, o, chunk=8)
+    chunked2 = lambda p, o: solve_class2_chunked(p, o, chunk=8)
+    amg_graphs.clear()
+    segment_sum.launches = 0
+    base, base_s, base_reads = loop1
+    out = {"loop": dict(seconds=base_s, host_reads_per_outer_iter=base_reads)}
+    for name, solve in (("chunked", chunked1), ("chunked_warm", chunked1),
+                        ("fused", solve_class1_fused)):
+        replays0 = amg_graphs.replays
+        res, secs, reads = run_class1(500, 500, dev, class1_opts(), solve)
+        rel = abs(res.fxk[-1] - base.fxk[-1]) / abs(base.fxk[-1])
+        row = dict(seconds=secs, host_reads_per_outer_iter=reads,
+                   fxk_rel_vs_loop=rel, captures=amg_graphs.captures,
+                   replays_per_newton_solve=(amg_graphs.replays - replays0)
+                   / max(int(res.ssn_itnum.sum()), 1),
+                   same_ssn_itnum=bool(np.array_equal(res.ssn_itnum,
+                                                      base.ssn_itnum)),
+                   **held_to_class1_reference(500, res))
+        out[name] = row
+        emit("drivers_class1_500", driver=name, loop_seconds=base_s,
+             loop_reads=base_reads, **row)
+        if not ((res.iters, res.fail_count) == (base.iters, base.fail_count)
+                and row["same_ssn_itnum"] and rel <= 1e-10
+                and reads <= base_reads / 2 and amg_graphs.captures <= 1
+                and amg_graphs.replays > replays0):
+            raise AssertionError(f"Class-1 500x500 {name} driver differs "
+                                 "from the loop driver")
+    launches = segment_sum.launches
+    res2l, secs2l, reads2l = loop2
+    captures0 = amg_graphs.captures
+    replays0 = amg_graphs.replays
+    res, secs, reads = run_class2(500, 500, dev, class2_opts(), chunked2)
+    row = dict(seconds=secs, host_reads_per_outer_iter=reads,
+               loop_seconds=secs2l, loop_reads=reads2l,
+               loop_fail_count=res2l.fail_count,
+               captures=amg_graphs.captures - captures0,
+               replays_per_newton_solve=(amg_graphs.replays - replays0)
+               / max(int(res.ssn_itnum.sum()), 1),
+               same_ssn_itnum=bool(np.array_equal(res.ssn_itnum,
+                                                  res2l.ssn_itnum)),
+               **held_to_reference(500, res))
+    out["class2_chunked"] = row
+    emit("drivers_class2_500", driver="chunked", **row)
+    if not ((res.iters, res.fail_count) == (res2l.iters, res2l.fail_count)
+            and row["captures"] <= 1 and reads < reads2l):
+        raise AssertionError("Class-2 500x500 chunked driver differs from "
+                             "the loop driver")
+    return out, launches
 
 
 def phase_mixed(dev, f64_seconds):
@@ -779,13 +1014,13 @@ def phase_sparse_setup(card, dev):
     row = dict(N=N, levels=sizes, sparse_caps=caps,
                kinds=[type(lv).__name__ for lv in levels],
                setup_seconds=setup_s, solve_seconds=solve_s,
-               iters=res.iters, rel_res=rel, true_rel_res=true_rel,
-               plain_iters=ref.iters, x_rel_vs_plain=dx,
+               iters=int(res.iters), rel_res=rel, true_rel_res=true_rel,
+               plain_iters=int(ref.iters), x_rel_vs_plain=dx,
                plain_setup_seconds=plain_setup_s,
                plain_solve_seconds=plain_solve_s,
                ell_spmv_launches=launches,
                launches_by_rows={str(k): v for k, v in sorted(by_rows.items())},
-               launches_per_cycle=launches / max(res.iters, 1),
+               launches_per_cycle=launches / max(int(res.iters), 1),
                share_of_launches_above_100k_rows=big / launches,
                cpu=SPARSE_SETUP_REF)
     emit("sparse_setup", **row)
@@ -865,8 +1100,10 @@ def phase_cli():
             rc_p, part, secs_p = run_cli(argv + ["--maxit", "20",
                                                  "--checkpoint", ck])
             steps = sorted(os.listdir(ck))
+            # The loop driver's checkpoint, resumed by the chunked one.
             rc_r, resumed, secs_r = run_cli(argv + ["--checkpoint", ck,
-                                                    "--resume"])
+                                                    "--resume", "--driver",
+                                                    "chunked"])
             row = dict(argv=argv, rc=[rc, rc_p, rc_r], full=full,
                        stopped=part, resumed=resumed, checkpoint_files=steps,
                        seconds=[secs, secs_p, secs_r], cpu=CLI_REF[name])
@@ -960,34 +1197,68 @@ def main() -> int:
     build_s = cuda_build.build_all(verbose=True)
     emit("build", seconds=build_s)
 
+    from otamg_torch.sparse import ell_spmv
+    from otamg_torch.sparse.segment import segment_sum
+
     t0 = time.perf_counter()
     rows = phase_kernels(card, dev)
+    seg_rows = phase_segment_sum(card, dev)
     emit("kernel_checks", seconds=time.perf_counter() - t0)
     # Each path's launches: counts set to 0 just before it, read after.
+    seg = {}
+    segment_sum.launches = 0
     launches = {"sparse_amg": phase_sparse_amg(dev)}
-    runs1, warm1 = phase_class1(dev)
+    seg["sparse_amg"] = segment_sum.launches
+    t0 = time.perf_counter()
+    runs1, warm1, seg["class1"] = phase_class1(dev)
+    emit("class1", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    segment_sum.launches = 0
+    runs2, warm2 = phase_class2(dev)
+    seg["class2"] = segment_sum.launches
+    emit("class2", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    _, seg["drivers"] = phase_drivers(dev, warm1, warm2)
+    emit("drivers", seconds=time.perf_counter() - t0)
     f64 = {(1,) + k: v for k, v in runs1.items()}
-    f64.update({(2,) + k: v for k, v in phase_class2(dev).items()})
+    f64.update({(2,) + k: v for k, v in runs2.items()})
     f64[(2, 500, "once")] = f64[(2, 500, "warm")]
+    t0 = time.perf_counter()
     phase_mixed(dev, f64)
-    phase_roofline(card, *warm1)
+    emit("mixed_all", seconds=time.perf_counter() - t0)
+    phase_roofline(card, *warm1[:2])
+    segment_sum.launches = 0
+    ell_spmv.launches = 0
     launches["sparse_setup"], _ = phase_sparse_setup(card, dev)
+    seg["sparse_setup"] = segment_sum.launches
     t0 = time.perf_counter()
     phase_cli()
     emit("cli", seconds=time.perf_counter() - t0)
 
     main_row = rows[("grid128", torch.float64)]
+    seg_row = seg_rows["components1000_L500"]
     print(json.dumps({"kernels": [{
         "name": "ell_spmv", "route": "cuda",
         "source": "otamg_torch/csrc/ell_spmv.cu",
-        "replaces": "otamg/sparse/kernels.py:40",
+        "replaces": "otamg/sparse/kernels.py:124",
         "launches": sum(launches.values()), "launches_by_path": launches,
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "device_ms": main_row["device_ms"], "host_us": main_row["host_us"],
-        "variant": main_row["variant"]}]}))
+        "variant": main_row["variant"]}, {
+        "name": "segment_sum", "route": "cuda",
+        "source": "otamg_torch/csrc/segment_sum.cu",
+        "replaces": "otamg/amg/hierarchy.py:404 (jax.ops.segment_sum, an "
+                    "XLA scatter-add; no Pallas kernel)",
+        "launches": seg["class1"], "launches_by_path": seg,
+        "max_abs_err": seg_row["max_abs_err"], "ms": seg_row["ms"],
+        "plain_ms": seg_row["plain_ms"], "bound_ms": seg_row["bound_ms"],
+        "bound_by": seg_row["bound_by"],
+        "library_ms": seg_row["library_ms"],
+        "device_ms": seg_row["device_ms"],
+        "variant": seg_row["variant"]}]}))
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

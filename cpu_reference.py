@@ -223,9 +223,9 @@ def newton_parity(prob, opts):
         zj = np.asarray(rj.zeta)
         d = float(np.abs(rt.zeta.numpy() - zj).max() / np.abs(zj).max())
         out["zeta_max_rel_diff"] = max(out["zeta_max_rel_diff"], d)
-        if rt.iters != int(rj.iters):
+        if int(rt.iters) != int(rj.iters):
             out["iters_differ"].append(
-                [out["systems"], rt.iters, int(rj.iters)])
+                [out["systems"], int(rt.iters), int(rj.iters)])
         out["systems"] += 1
         return rt
 
@@ -258,7 +258,7 @@ def grid_reference(nx: int, maxit: int) -> None:
     print(json.dumps({
         "grid": nx, "maxit": maxit, "jax_iters": int(rj.iters),
         "jax_rel_res": float(rj.rel_res), "jax_seconds": tj,
-        "port_iters": rt.iters, "port_rel_res": float(rt.rel_res),
+        "port_iters": int(rt.iters), "port_rel_res": float(rt.rel_res),
         "port_seconds": tt,
         "x_rel_diff": float(np.abs(np.asarray(rj.x) - rt.x.numpy()).max()
                             / np.abs(np.asarray(rj.x)).max())}))

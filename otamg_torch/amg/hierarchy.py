@@ -315,13 +315,14 @@ def capacity_schedule(m: int, nfine: int, opts: AMGOptions) -> list[int]:
 
 
 def setup_hierarchy(E, g, inv_tk, labels, nsp, opts: AMGOptions,
-                    key: torch.Tensor, gk=None):
+                    key: torch.Tensor, gk=None, exit_every: int = 1):
     """Build the full hierarchy for ``Ae = diag(g) - E/tk``
     (``Class_AMG.m:41-85`` with the level-1 bigraph ideal interpolation
     of ``transfer.m:19-25``).  ``gk`` is the non-Laplacian part of the
     diagonal, ``bk1 Q + K/tk``, from which the kernel-projection
     quantities are built without cancellation; without it a matvec
-    evaluates them."""
+    evaluates them.  ``exit_every`` is the MIS rounds' read interval
+    (:func:`otamg_torch.amg.graph.mis_dense`)."""
     m, n = E.shape
     N = n + m
     dtype = E.dtype
@@ -370,13 +371,15 @@ def setup_hierarchy(E, g, inv_tk, labels, nsp, opts: AMGOptions,
     caps = capacity_schedule(m, N, opts)
     dense_levels = _build_dense_chain(
         A2, torch.ones(m, dtype=torch.bool, device=E.device), labels[n:],
-        nsp[n:], caps, opts, key, nseg, axi0=axi2, xxseg=xxseg, ok0=ok)
+        nsp[n:], caps, opts, key, nseg, axi0=axi2, xxseg=xxseg, ok0=ok,
+        exit_every=exit_every)
     return lv1, dense_levels
 
 
 def _build_dense_chain(A0, act0, lab0, nsp0, caps, opts: AMGOptions,
                        key: torch.Tensor, nseg: int,
-                       axi0=None, xxseg=None, ok0=True) -> tuple:
+                       axi0=None, xxseg=None, ok0=True,
+                       exit_every: int = 1) -> tuple:
     """Chain of padded dense levels (MIS coarsening) from ``A0`` at
     capacity ``caps[0]``, ending with the eigendecomposed coarsest level.
 
@@ -431,7 +434,8 @@ def _build_dense_chain(A0, act0, lab0, nsp0, caps, opts: AMGOptions,
             break
         key, sub = jr.split(key)
         (A_cur, act_cur, lab_cur, nsp_cur, P_cur, defect) = _coarsen_dense(
-            A_cur, act_cur, lab_cur, nsp_cur, caps[li + 1], opts, sub, nseg)
+            A_cur, act_cur, lab_cur, nsp_cur, caps[li + 1], opts, sub, nseg,
+            exit_every)
         ok_cur = ok_cur & (defect < 0.1)
         if axi_cur is not None:
             axi_cur = P_cur.T @ axi_cur
@@ -566,7 +570,8 @@ def setup_hierarchy_sparse(csr, opts: AMGOptions, key: torch.Tensor,
 
 
 def _coarsen_dense(A, active, labels, nsp, cap_next: int,
-                   opts: AMGOptions, key: torch.Tensor, nseg: int):
+                   opts: AMGOptions, key: torch.Tensor, nseg: int,
+                   exit_every: int = 1):
     """One MIS + standard-interpolation + Galerkin coarsening step
     (``transfer.m:41-66``) on a padded dense level.  Also returns the
     interpolation defect: the worst deviation from 1 of a near-singular
@@ -577,7 +582,7 @@ def _coarsen_dense(A, active, labels, nsp, cap_next: int,
     dtype = A.dtype
     dev = A.device
     As = strength_dense(A, active) >= opts.theta
-    isC, isF = mis_dense(As, active, key)
+    isC, isF = mis_dense(As, active, key, exit_every=exit_every)
 
     dinv = 1.0 / torch.diagonal(A)
     fc_mask = isF[:, None] & isC[None, :]
@@ -879,24 +884,110 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
 
 class AMGSolveResult(NamedTuple):
     x: torch.Tensor
-    iters: int
+    iters: torch.Tensor    # () int64, on the device of x
     rel_res: torch.Tensor
+
+
+def _solve_step(cycle, mv0, lv1, dense, deep_D, b, safe0, retol_eff: float,
+                maxit: int, state):
+    """One iteration of :func:`amg_solve` on ``state = (x, r, rel, it,
+    go)``, frozen where ``go`` is False."""
+    x, r, rel, it, go = state
+    # The residual is carried: the post-update residual of one iteration
+    # is the next one's r.
+    x_new = x + cycle(lv1, dense, r, deep_D)
+    r_new = b - mv0(lv1, x_new)
+    res = torch.linalg.vector_norm(r_new)
+    nr = torch.linalg.vector_norm(r)
+    bad = ~torch.isfinite(res)
+    grew = bad | (res > nr)
+    x1 = torch.where(grew, x, x_new)
+    r1 = torch.where(grew, r, r_new)
+    rel1 = torch.where(grew, rel, res / safe0)
+    rho = torch.where(bad, 2.0, res / nr)
+    it1 = it + 1
+    done = (rel1 <= retol_eff) | (rho > 1.0) | (it1 >= maxit)
+    return (torch.where(go, x1, x), torch.where(go, r1, r),
+            torch.where(go, rel1, rel), torch.where(go, it1, it),
+            go & ~done)
+
+
+class _Captured:
+    """A block of solve iterations captured as one CUDA graph, with the
+    static buffers it reads (the hierarchy, ``b``, ``safe0``) and the
+    state it advances in place."""
+
+    def __init__(self, inputs, state, run_block):
+        self.inputs = [t.clone() for t in inputs]
+        self.state = [t.clone() for t in state]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            # Warm-up outside the capture (cuBLAS workspaces, the kernels'
+            # first-call set-up).
+            for dst, src in zip(self.state, run_block(self.inputs,
+                                                      self.state)):
+                dst.copy_(src)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            for dst, src in zip(self.state, run_block(self.inputs,
+                                                      self.state)):
+                dst.copy_(src)
+
+
+class GraphCache:
+    """The captured AMG solve blocks, one per tape signature (level
+    shapes and dtypes, cycle, ``deflated``, ``fuse_deep``, block size and
+    stopping rule); ``captures`` and ``replays`` count since ``clear``."""
+
+    def __init__(self):
+        self.blocks: dict = {}
+        self.captures = 0
+        self.replays = 0
+
+    def clear(self) -> None:
+        self.blocks.clear()
+        self.captures = self.replays = 0
+
+
+amg_graphs = GraphCache()
+
+
+def _capturable(lv1, dense, b, deep_D, coarse_direct: bool) -> bool:
+    """The cycle makes no host read: the bipartite level over dense
+    levels with the direct (or fused) coarse solve, on a card."""
+    return (b.is_cuda and isinstance(lv1, BipartiteLevel)
+            and all(isinstance(lv, DenseLevel) for lv in dense)
+            and (deep_D is not None
+                 or (coarse_direct and len(dense) > 0
+                     and dense[-1].evecs.shape[0] > 0)))
 
 
 def amg_solve(lv1, dense: Sequence[DenseLevel], b: torch.Tensor,
               guess: torch.Tensor, opts: AMGOptions,
-              deflated: bool = False) -> AMGSolveResult:
+              deflated: bool = False, exit_every: int = 1) -> AMGSolveResult:
     """Stationary iteration ``x += cycle(b - A x)`` with relative-residual
     stopping and the divergence guard (``Class_AMG.m:95-106``): a cycle
     whose residual grows, or is not finite, is reverted and ends the
-    loop.  One host read per iteration.  ``deflated=True`` keeps every
-    iterate kernel-free (the mixed-precision correction solves).  Below
-    f64 the relative tolerance is floored at 4 eps of ``b``'s dtype."""
+    loop.  ``deflated=True`` keeps every iterate kernel-free (the
+    mixed-precision correction solves).  Below f64 the relative
+    tolerance is floored at 4 eps of ``b``'s dtype.
+
+    The iterations run in blocks of ``exit_every`` with one host read a
+    block; the iterations after the exit inside a block leave ``x``,
+    ``rel`` and the count ``iters`` (kept on the device) as the exit set
+    them, so the block size does not change the result.  On a card with
+    ``exit_every > 1``, a bipartite hierarchy and a direct coarse solve,
+    the block is one CUDA graph (:data:`amg_graphs`), captured at the
+    first solve of its signature and replayed for every later one: each
+    solve copies its hierarchy into the graph's static buffers."""
     nseg = b.shape[0]
     gamma = {Cycle.V: 1, Cycle.W: 2, Cycle.F: 3}[opts.cycle]
+    coarse_direct = opts.coarse_solver == "direct"
     cycle = make_cycle(len(dense), opts.smoth, gamma, nseg,
                        opts.coarse_pcg.retol, opts.coarse_pcg.maxit,
-                       opts.coarse_solver == "direct", deflated)
+                       coarse_direct, deflated)
     deep_D = (cycle.build_deep(lv1, dense, b.dtype)
               if opts.fuse_deep else None)
     mv0 = _level0_ops(lv1)[0]
@@ -905,26 +996,52 @@ def amg_solve(lv1, dense: Sequence[DenseLevel], b: torch.Tensor,
     res0 = torch.linalg.vector_norm(r)
     safe0 = torch.where(res0 == 0, 1.0, res0)
     retol_eff = max(opts.retol, 4 * torch.finfo(b.dtype).eps)
-    x = guess
-    rel = torch.ones((), dtype=b.dtype, device=b.device)
-    it = 0
-    done = bool(fetch(res0 == 0))
-    while not done:
-        # The residual is carried: the post-update residual of one
-        # iteration is the next one's r.
-        x_new = x + cycle(lv1, dense, r, deep_D)
-        r_new = b - mv0(lv1, x_new)
-        res = torch.linalg.vector_norm(r_new)
-        nr = torch.linalg.vector_norm(r)
-        bad = ~torch.isfinite(res)
-        grew = bad | (res > nr)
-        x = torch.where(grew, x, x_new)
-        r = torch.where(grew, r, r_new)
-        rel = torch.where(grew, rel, res / safe0)
-        rho = torch.where(bad, 2.0, res / nr)
-        it += 1
-        done = (bool(fetch((rel <= retol_eff) | (rho > 1.0)))
-                or it >= opts.maxit)
+    state = (guess, r, torch.ones((), dtype=b.dtype, device=b.device),
+             torch.zeros((), dtype=torch.int64, device=b.device), res0 != 0)
+
+    if exit_every > 1 and _capturable(lv1, dense, b, deep_D, coarse_direct):
+        nlv1 = len(lv1)
+        nd = len(DenseLevel._fields)
+
+        def run_block(inputs, st):
+            lv = BipartiteLevel(*inputs[:nlv1])
+            dl = [DenseLevel(*inputs[nlv1 + i * nd:nlv1 + (i + 1) * nd])
+                  for i in range(len(dense))]
+            dD = inputs[-3] if deep_D is not None else None
+            for _ in range(exit_every):
+                st = _solve_step(cycle, mv0, lv, dl, dD, inputs[-2],
+                                 inputs[-1], retol_eff, opts.maxit, st)
+            return st
+
+        inputs = [*lv1, *(t for lv in dense for t in lv),
+                  *([deep_D] if deep_D is not None else []), b, safe0]
+        sig = (tuple((tuple(t.shape), t.dtype, t.device) for t in inputs),
+               deep_D is not None, opts.smoth, gamma, deflated, exit_every,
+               retol_eff, opts.maxit)
+        blk = amg_graphs.blocks.get(sig)
+        if blk is None:
+            blk = amg_graphs.blocks[sig] = _Captured(inputs, state,
+                                                     run_block)
+            amg_graphs.captures += 1
+        for dst, src in zip(blk.inputs, inputs):
+            dst.copy_(src)
+        for dst, src in zip(blk.state, state):
+            dst.copy_(src)
+        while True:
+            blk.graph.replay()
+            amg_graphs.replays += 1
+            if not fetch(blk.state[4]):
+                break
+        x, _, rel, it, _ = (t.clone() for t in blk.state)
+        return AMGSolveResult(x, it, rel)
+
+    while True:
+        for _ in range(exit_every):
+            state = _solve_step(cycle, mv0, lv1, dense, deep_D, b, safe0,
+                                retol_eff, opts.maxit, state)
+        if not fetch(state[4]):
+            break
+    x, _, rel, it, _ = state
     return AMGSolveResult(x, it, rel)
 
 

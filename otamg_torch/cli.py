@@ -11,7 +11,8 @@ solve's ``solver_report`` as one JSON line on stdout, per-iteration
 records to ``--log`` (JSONL), the diagnostic panels to ``--plot`` (PNG),
 and exit code 0 if the solve converged.  The solve runs on CUDA unless
 ``--device cpu`` is given; without a card the CLI exits nonzero rather
-than run on the CPU.  Only the loop driver is ported, and the
+than run on the CPU.  ``--driver`` picks the loop, chunked (``--chunk``
+iterations a read) or fused driver, all on one trajectory; the
 multi-process flags of the JAX CLI are not offered.
 """
 
@@ -47,10 +48,19 @@ def _common(sub):
                           "accelerator because the TPU emulates f64; on "
                           "the H100 the mixed path measured 1.10-2.08x "
                           "slower than f64 (PERF.md, Findings)")
-    sub.add_argument("--driver", default="loop", choices=["loop"],
-                     help="outer-loop driver: loop (one step per APD "
-                          "iteration).  The chunked and fused drivers of "
-                          "the JAX CLI are not ported")
+    sub.add_argument("--driver", default="loop",
+                     choices=["loop", "chunked", "fused"],
+                     help="outer-loop driver, all on one trajectory: loop "
+                          "(every loop exit one host read, metrics read "
+                          "each iteration), chunked (loop exits read once "
+                          "per block of --chunk tests, the AMG cycles of a "
+                          "block one CUDA graph, records read once per "
+                          "--chunk iterations, checkpoints at chunk "
+                          "boundaries) or fused (blocks of 8, records read "
+                          "once per solve, no checkpoints)")
+    sub.add_argument("--chunk", type=int, default=8,
+                     help="iterations per records read, and tests per loop "
+                          "exit read, for --driver chunked")
     sub.add_argument("--device", default="cuda",
                      help="device of the solve (default cuda; cpu runs "
                           "on the CPU)")
@@ -117,8 +127,16 @@ def _report(args, res, records) -> None:
             print(f"wrote {p}", file=sys.stderr)
 
 
+def _warn_fused_checkpoint(args) -> None:
+    if args.checkpoint and args.driver == "fused":
+        print("warning: --checkpoint is ignored with --driver fused (the "
+              "whole solve is one device program); use loop (per-"
+              "iteration) or chunked (per-chunk)", file=sys.stderr)
+
+
 def cmd_class1(args) -> int:
-    from otamg_torch.opt import solve_class1
+    from otamg_torch.opt import (solve_class1, solve_class1_chunked,
+                                 solve_class1_fused)
     from otamg_torch.ot import load_class1_mat, random_class1
     from otamg_torch.random import PRNGKey
 
@@ -127,10 +145,19 @@ def cmd_class1(args) -> int:
     else:
         prob = random_class1(PRNGKey(args.seed), args.m, args.n,
                              dtype=_dtype(args), device=args.dev)
+    _warn_fused_checkpoint(args)
     with _maybe_profile(args):
-        res = solve_class1(prob, _opts(args), verbose=args.verbose,
-                           checkpoint_dir=args.checkpoint,
-                           resume=args.resume)
+        if args.driver == "chunked":
+            res = solve_class1_chunked(prob, _opts(args), chunk=args.chunk,
+                                       verbose=args.verbose,
+                                       checkpoint_dir=args.checkpoint,
+                                       resume=args.resume)
+        elif args.driver == "fused":
+            res = solve_class1_fused(prob, _opts(args))
+        else:
+            res = solve_class1(prob, _opts(args), verbose=args.verbose,
+                               checkpoint_dir=args.checkpoint,
+                               resume=args.resume)
     _report(args, res, (dict(it=k, kkt_x=float(res.kkt_x[k]),
                              kkt_l=float(res.kkt_l[k]),
                              fxk=float(res.fxk[k]))
@@ -143,7 +170,8 @@ def cmd_class1(args) -> int:
 
 
 def cmd_class2(args) -> int:
-    from otamg_torch.opt.apd2 import solve_class2
+    from otamg_torch.opt.apd2 import (solve_class2, solve_class2_chunked,
+                                      solve_class2_fused)
     from otamg_torch.ot import load_class2_mat, random_class2
     from otamg_torch.random import PRNGKey
 
@@ -153,11 +181,21 @@ def cmd_class2(args) -> int:
         prob = random_class2(PRNGKey(args.seed), args.m, args.n,
                              dtype=_dtype(args), mu_frac=args.mu_frac,
                              device=args.dev)
+    _warn_fused_checkpoint(args)
     with _maybe_profile(args):
-        res = solve_class2(prob, _opts(args, class2=True),
-                           verbose=args.verbose,
-                           checkpoint_dir=args.checkpoint,
-                           resume=args.resume)
+        if args.driver == "chunked":
+            res = solve_class2_chunked(prob, _opts(args, class2=True),
+                                       chunk=args.chunk,
+                                       verbose=args.verbose,
+                                       checkpoint_dir=args.checkpoint,
+                                       resume=args.resume)
+        elif args.driver == "fused":
+            res = solve_class2_fused(prob, _opts(args, class2=True))
+        else:
+            res = solve_class2(prob, _opts(args, class2=True),
+                               verbose=args.verbose,
+                               checkpoint_dir=args.checkpoint,
+                               resume=args.resume)
     _report(args, res, (dict(it=k, kkt_x=float(res.kkt[k, 0]),
                              kkt_y=float(res.kkt[k, 1]),
                              kkt_z=float(res.kkt[k, 2]),

@@ -44,7 +44,8 @@ def _smw_combine(sg, phi_e, v, vv, ww, z2):
 
 def make_pot_amg_solver(p: torch.Tensor, q: torch.Tensor, Phi: torch.Tensor,
                         opts: AMGOptions, twogrid: bool = False,
-                        solve_dtype=None, refine: int = 10) -> NewtonSolver:
+                        solve_dtype=None, refine: int = 10,
+                        exit_every: int = 1) -> NewtonSolver:
     """POT Newton solver: SMW reduction and hybrid AMG core solves on one
     shared hierarchy (``AMG4POT.m`` with the 'amg'/'twogrid' backends).
     The two-grid options are built afresh from ``opts``, as the JAX
@@ -52,7 +53,8 @@ def make_pot_amg_solver(p: torch.Tensor, q: torch.Tensor, Phi: torch.Tensor,
     go back to their defaults.  ``solve_dtype`` and ``refine`` select the
     mixed-precision core solves of
     :func:`otamg_torch.hybrid.solver.build_he_solver`; both share the one
-    fp32 hierarchy."""
+    fp32 hierarchy.  ``exit_every`` is the read interval of the loops
+    inside."""
     if twogrid:
         opts = AMGOptions(
             retol=opts.retol, bigph=opts.bigph, maxit=opts.maxit,
@@ -66,12 +68,12 @@ def make_pot_amg_solver(p: torch.Tensor, q: torch.Tensor, Phi: torch.Tensor,
         kg1, kg2, ks = jr.split(key, 3)
         he_solve, ncomp, last = build_he_solver(S, tvec, bk1, tk, p, q,
                                                 opts, ks, solve_dtype,
-                                                refine)
+                                                refine, exit_every)
         vv, it1, res1 = he_solve(v, kg1)
         ww, it2, res2 = he_solve(w, kg2)
         return NewtonSolveResult(_smw_combine(sg, phi_e, v, vv, ww, z2),
-                                 max(it1, it2), torch.maximum(res1, res2),
-                                 ncomp, last)
+                                 torch.maximum(it1, it2),
+                                 torch.maximum(res1, res2), ncomp, last)
 
     return solve
 

@@ -50,14 +50,15 @@ def _transform(S, tvec, bk1, tk, rhs, p, q):
     return E, g, kdiag, f, q0
 
 
-def _component_info(E, kdiag):
+def _component_info(E, kdiag, exit_every: int = 1):
     """Component labels and per-component near-singularity flags
     (``Hybrid_AMG.m:33-40,60-66``: a component is near-singular iff the
     ``K`` diagonal vanishes on it), the component count, and ``last``:
     the 1-based ordinal (in increasing root-label order) of the last
-    component with more than 100 nodes (``Hybrid_AMG.m:51,80,113``)."""
+    component with more than 100 nodes (``Hybrid_AMG.m:51,80,113``).
+    ``exit_every`` is label propagation's read interval."""
     N = kdiag.shape[0]
-    labels = connected_components_bipartite(E)
+    labels = connected_components_bipartite(E, exit_every=exit_every)
     nsp = segment_sum(kdiag, labels, N)[labels] == 0
     roots = labels == torch.arange(N, device=labels.device)
     ncomp = roots.sum()
@@ -97,15 +98,17 @@ refine_counts = RefineCounts()
 
 def make_hybrid_amg_solver(p: torch.Tensor, q: torch.Tensor,
                            opts: AMGOptions, twogrid: bool = False,
-                           solve_dtype=None,
-                           refine: int = 10) -> NewtonSolver:
+                           solve_dtype=None, refine: int = 10,
+                           exit_every: int = 1) -> NewtonSolver:
     """Newton solver through the hybrid AMG path (``inner_solver=4``).
     ``twogrid=True`` is the two-level variant of ``Hybrid_twogrid.m``:
     one coarse level solved by Jacobi-PCG capped at 100 iterations
     (``twogrid_bigph.m:98-99``), deliberately inexact.  With
     ``solve_dtype`` (``"float32"``) the hierarchy runs in that dtype and
     up to ``refine`` rounds of refinement bring the solution to the
-    problem's precision (:func:`build_he_solver`)."""
+    problem's precision (:func:`build_he_solver`).  ``exit_every`` is
+    the read interval of every loop of the Newton solve (label
+    propagation, MIS rounds, AMG iterations)."""
     if twogrid:
         opts = dataclasses.replace(
             opts, max_levels=2, coarse_solver="pcg",
@@ -115,7 +118,7 @@ def make_hybrid_amg_solver(p: torch.Tensor, q: torch.Tensor,
         k_setup, k_solve = jr.split(key)
         he_solve, ncomp, last = build_he_solver(S, tvec, bk1, tk, p, q,
                                                 opts, k_setup, solve_dtype,
-                                                refine)
+                                                refine, exit_every)
         zeta, iters, rel = he_solve(rhs, k_solve)
         return NewtonSolveResult(zeta, iters, rel, ncomp, last)
 
@@ -123,7 +126,7 @@ def make_hybrid_amg_solver(p: torch.Tensor, q: torch.Tensor,
 
 
 def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
-                    solve_dtype=None, refine: int = 10):
+                    solve_dtype=None, refine: int = 10, exit_every: int = 1):
     """Build the hierarchy once and return ``(he_solve, ncomp, last)``,
     where ``he_solve(rhs, key) -> (zeta, iters, rel)`` solves
     ``He zeta = rhs`` and may be called again against the same ``He``.
@@ -140,18 +143,22 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
     reverted and ends the loop.  Unlike the JAX package, the correction
     solve's right-hand side is scaled by a power of two to unit norm.
     ``iters`` is the most correction cycles of any round; each round
-    costs one host read besides its solve's."""
+    costs one host read besides its solve's.  ``iters`` is a 0-d int64
+    tensor on the device.  ``exit_every`` is the read interval of the
+    loops inside (:func:`otamg_torch.amg.hierarchy.amg_solve`)."""
     hi = S.dtype
     lo = hi if solve_dtype is None else getattr(torch, solve_dtype)
     E, g, kdiag, _, q0 = _transform(S, tvec, bk1, tk, torch.zeros_like(tvec),
                                     p, q)
-    labels, nsp, ncomp, last = _component_info(E, kdiag)
+    labels, nsp, ncomp, last = _component_info(E, kdiag, exit_every)
+    # Only a blocked solve names the interval (1 is the default).
+    every = {} if exit_every == 1 else dict(exit_every=exit_every)
     if opts.bigph:
         # bk1*Q + K/tk equals Ae @ (component indicator) exactly: the
         # analytic form of the kernel-projection quantities.
         gk = bk1 * torch.cat([q * q, p * p]) + kdiag / tk
         lv1, dense = setup_hierarchy(E.to(lo), g.to(lo), 1.0 / tk, labels,
-                                     nsp, opts, key, gk=gk.to(lo))
+                                     nsp, opts, key, gk=gk.to(lo), **every)
     else:
         # Non-bigph mode (``Class_AMG.m:72``): assemble the dense Ae and
         # run the generic weighted-Jacobi/MIS hierarchy.
@@ -171,7 +178,8 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
     if lo == hi:
         def he_solve(rhs, kguess):
             f = q0 * rhs
-            r = amg_solve(lv1, dense, f, draw_guess(f, kguess), opts)
+            r = amg_solve(lv1, dense, f, draw_guess(f, kguess), opts,
+                          **every)
             return q0 * r.x, r.iters, r.rel_res
 
         return he_solve, ncomp, last
@@ -231,13 +239,15 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
             scale = torch.exp2(-torch.round(torch.log2(
                 torch.where(nr > 0, nr, 1.0))))
             cor = amg_solve(lv1, dense, (r * scale).to(lo), zeros_lo, opts,
-                            deflated=True)
+                            deflated=True, **every)
             w2 = wd + cor.x.to(hi) / scale
             rel2 = torch.linalg.vector_norm(residual(w2)[2]) / safe_nf
-            ok, go = fetch(torch.stack([rel2 < rel, rel2 > opts.retol]))
-            iters = max(iters, cor.iters)
+            ok, go, cycles = fetch(torch.stack([
+                (rel2 < rel).to(torch.int64),
+                (rel2 > opts.retol).to(torch.int64), cor.iters]))
+            iters = max(iters, cycles)
             refine_counts.rounds += 1
-            refine_counts.cycles += cor.iters
+            refine_counts.cycles += cycles
             if ok:
                 w, rel, rounds = w2, rel2, rounds + 1
             else:
@@ -246,7 +256,9 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
                 refine_counts.reverted += 1
                 w, rounds = wd, refine
         wd, a, _ = residual(w)
-        return q0 * (wd + a), iters, rel
+        return (q0 * (wd + a),
+                torch.full((), iters, dtype=torch.int64, device=f.device),
+                rel)
 
     return he_solve, ncomp, last
 

@@ -21,7 +21,8 @@ from otamg_torch.ot import operators as op
 
 class NewtonSolveResult(NamedTuple):
     zeta: torch.Tensor
-    iters: int              # iteration count of the inner solver
+    iters: int | torch.Tensor  # inner-solver iterations (the AMG
+    #                            solvers: a 0-d int64 tensor on the device)
     res: torch.Tensor       # relative residual reached
     ncomp: torch.Tensor     # info[0]: number of graph components (0 if n/a)
     last: torch.Tensor      # info[1]: last large-component index (0 if n/a)

@@ -19,14 +19,9 @@ import dataclasses
 import torch
 
 from otamg_torch.sparse.kernels import ell_spmv
+from otamg_torch.sparse.segment import segment_sum
 
 _KEY_PAD = torch.iinfo(torch.int64).max
-
-
-def _segment_sum(data: torch.Tensor, ids: torch.Tensor,
-                 nseg: int) -> torch.Tensor:
-    out = torch.zeros(nseg, dtype=data.dtype, device=data.device)
-    return out.index_add_(0, ids.long(), data)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,11 +68,11 @@ class COO:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """``y = A @ x`` by gather and segment sum (padding adds 0 to
         row 0)."""
-        return _segment_sum(self.vals * x[self.cols.long()], self.rows,
+        return segment_sum(self.vals * x[self.cols.long()], self.rows,
                             self.shape[0])
 
     def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
-        return _segment_sum(self.vals * y[self.rows.long()], self.cols,
+        return segment_sum(self.vals * y[self.rows.long()], self.cols,
                             self.shape[1])
 
     def transpose(self) -> "COO":
@@ -106,7 +101,7 @@ class COO:
         is_new = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                             k[1:] != k[:-1]]) & vo
         gid = torch.where(vo, torch.cumsum(is_new, 0) - 1, cap - 1)
-        sums = _segment_sum(v, gid, cap)
+        sums = segment_sum(v, gid, cap)
         # representative key of each group: its first (sorted) entry
         pos = torch.arange(cap, device=dev)
         first = torch.full((cap,), cap, dtype=torch.int64, device=dev)
@@ -165,7 +160,7 @@ class CSR:
         nr, nc = c.shape
         dev = c.rows.device
         valid = c._valid()
-        counts = _segment_sum(valid.to(torch.int64), c.rows, nr)
+        counts = segment_sum(valid.to(torch.int64), c.rows, nr)
         indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                             torch.cumsum(counts, 0)])
         rows = c.rows.long()

@@ -89,12 +89,13 @@ def test_profile_writes_trace(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--driver", "chunked"], ["--driver", "fused"], ["--chunk", "4"],
+    ["--driver", "scan"], ["--driver"], ["--chunk", "four"],
     ["--shard"], ["--num-processes", "2"], ["--coordinator", "h:1"],
     ["--process-id", "0"]])
 def test_unported_flags_refused(flags, capsys):
-    """The drivers and multi-process flags that are not ported are
-    refused by the parser, never mapped onto the loop driver."""
+    """The multi-process flags, which are not ported, and a driver or a
+    chunk size that does not exist are refused by the parser, never
+    mapped onto the loop driver."""
     with pytest.raises(SystemExit) as exc:
         t_main(["class1", "--m", "8", "--n", "8", "--device", "cpu", *flags])
     assert exc.value.code != 0
