@@ -15,9 +15,12 @@ Phases, each printing one JSON line with its numbers and seconds:
    wrapper's host time per call), the bound and the share of it reached,
    the plain version's time and a ``torch.sparse_csr_tensor @ x`` call's
    as a yardstick; then ``segment_sum`` (the deterministic segment sum
-   of ``otamg_torch/csrc/segment_sum.cu``) against its plain version,
-   ``index_add_``, at the shapes of the paths, with its time beside
-   ``index_add_``'s;
+   of ``otamg_torch/csrc/segment_sum.cu``) over a segment plan made
+   beforehand, against its plain version, ``index_add_``, at the shapes
+   of the paths, with its time beside the plan's build (``segment_plan``,
+   torch ops), the call without a plan and ``index_add_``'s, and the
+   pair form ``segment_sum2`` at the bipartite level's halves against
+   the two sums it replaces;
 4. sparse   — ``amg_solve_matrix`` on the 128x128 grid Laplacian + 0.01 I
    as an ELL ``CSR`` (the path that runs the kernel), 30 iterations, with
    its launches, checked against the same solve through the plain SpMV;
@@ -57,8 +60,9 @@ Phases, each printing one JSON line with its numbers and seconds:
    level's matvec through the ELL kernel: setup and solve seconds, the
    levels, the launches by level size, held to the same solve through
    the plain SpMV and to the JAX package's CPU run
-   (``SPARSE_SETUP_REF``), then the kernel timed at the fine and the
-   first aggregation level's shapes;
+   (``SPARSE_SETUP_REF``), with the ``segment_sum`` launches of the
+   solve, then the kernel timed at the fine and the first aggregation
+   level's shapes;
 10. cli     — ``otamg_torch.cli.main`` in this process: Class 1 256x256
    and Class 2 128x128 (AMG, F-cycle), each uninterrupted, stopped at
    20 iterations with ``--checkpoint`` and resumed with ``--resume
@@ -100,6 +104,20 @@ _PEAK = {torch.float64: 34e12, torch.float32: 67e12}
 
 def emit(phase: str, **kv):
     print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def zero_counts():
+    """Set the ``segment_sum`` kernels' launch count to 0."""
+    from otamg_torch.sparse.segment import segment_sum
+
+    segment_sum.launches = 0
+
+
+def counts() -> int:
+    """The ``segment_sum`` kernels' launches since :func:`zero_counts`."""
+    from otamg_torch.sparse.segment import segment_sum
+
+    return segment_sum.launches
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -355,24 +373,23 @@ def segment_bound(card, L, nseg, dtype):
 
 def segment_shapes(dev, gen):
     """(name, data, labels, nseg) at the shapes the paths give
-    ``segment_sum``: the bipartite smoother's half-vectors and the
-    component sums of a 500x500 and a 1024x1024 Newton system (one big
-    component and a few small ones), the mixed path's fp32 sweeps, an
-    int64 count, and the sparse-setup smoother's 1,048,576 nodes in one
-    segment (the sorted variant)."""
-    def comps(N, L):
-        lab = torch.zeros(L, dtype=torch.int64, device=dev)
-        lab[L - 8:] = torch.arange(L - 8, L, device=dev)
-        return lab
-
+    ``segment_sum``: the component sums of a 500x500, a 1024x1024 and a
+    2048x2048 Newton system (one big component and a few small ones) and
+    their dense levels, the mixed path's fp32 sweeps, an int64 count,
+    random labels, and the sparse-setup smoother's 1,048,576 nodes in one
+    segment (a tiled call)."""
     for N in (1000, 2048):
         for L in (N // 2, N):
             yield (f"components{N}_L{L}",
                    torch.randn(L, generator=gen, device=dev,
-                               dtype=torch.float64), comps(N, L), N)
+                               dtype=torch.float64), comps(L, dev), N)
+    yield ("components4096_L4096", torch.randn(4096, generator=gen,
+                                               device=dev,
+                                               dtype=torch.float64),
+           comps(4096, dev), 4096)
     yield ("components1000_f32", torch.randn(500, generator=gen, device=dev,
                                              dtype=torch.float32),
-           comps(1000, 500), 1000)
+           comps(500, dev), 1000)
     yield ("count1000_i64", torch.ones(1000, dtype=torch.int64, device=dev),
            torch.randint(0, 40, (1000,), generator=gen, device=dev), 1000)
     yield ("random16384", torch.randn(16384, generator=gen, device=dev,
@@ -385,56 +402,111 @@ def segment_shapes(dev, gen):
            torch.zeros(N, dtype=torch.int64, device=dev), N)
 
 
+def comps(L, dev):
+    """One big component and 8 singletons: the labels of a Newton
+    system's nodes (or of a dense level's)."""
+    lab = torch.zeros(L, dtype=torch.int64, device=dev)
+    lab[L - 8:] = torch.arange(L - 8, L, device=dev)
+    return lab
+
+
+def segment_row(name, card, fn, plan_fn, noplan_fn, plain_fn, library_fn,
+                cpu, scale, L, nseg, dtype, exact):
+    """Checks and times of one shape: ``fn()`` the sum over a plan made
+    beforehand, ``plan_fn()`` the plan alone, ``noplan_fn()`` the call
+    without a plan, ``plain_fn()`` the plain version (``index_add_`` on
+    the card), ``library_fn()`` one PyTorch call of the same function;
+    ``cpu`` the CPU's sums, ``scale`` the terms' absolute sums."""
+    got, again, noplan, plain = fn(), fn(), noplan_fn(), plain_fn()
+    torch.cuda.synchronize()
+    err = (got.double() - plain.double()).abs()
+    # index_add_ on the card rounds in its own order: its sums are held
+    # to the kernel's within ~4 ulp of the terms' absolute sum.
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    row = dict(shape=name, L=L, nseg=nseg, dtype=str(dtype).split(".")[-1],
+               variant="exact" if exact else "tiled", rtol=rtol,
+               max_abs_err=float(err.max()),
+               equal_to_cpu=torch.equal(got.cpu(), cpu),
+               repeat_equal=torch.equal(got, again),
+               noplan_equal=torch.equal(noplan, got))
+    ok = (row["repeat_equal"] and row["noplan_equal"]
+          and bool((err <= rtol * scale + 1e-300).all())
+          and (not exact or row["equal_to_cpu"]))
+    bound_ms, bound_by = segment_bound(card, L, nseg, dtype)
+    ms = cuda_ms(fn)
+    row.update(ms=ms, device_ms=graph_ms(fn), host_us=host_us(fn),
+               plan_ms=cuda_ms(plan_fn),
+               noplan_ms=cuda_ms(noplan_fn),
+               plain_ms=cuda_ms(plain_fn), library_ms=cuda_ms(library_fn),
+               bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / ms)
+    return row, ok
+
+
 def phase_segment_sum(card, dev):
     """The deterministic ``segment_sum`` against its plain version
-    (``index_add_``) on the same inputs: equal to the CPU's sums bit for
-    bit where the scan variant runs, within 1e-12 of the terms' absolute
-    sum where the sorted one does, equal to itself across calls; its
-    time (events around 100 calls; ``device_ms`` the same calls as a CUDA
-    graph, which also shows it is capture-safe) beside the plain
-    version's and one ``torch.index_add`` call's (``library_ms``)."""
-    from otamg_torch.sparse.segment import (SCAN_LIMIT, segment_sum,
-                                            segment_sum_plain)
+    (``index_add_``) on the same inputs, over a plan made beforehand:
+    equal to the CPU's sums bit for bit where the call is exact, within
+    1e-12 of the terms' absolute sum where it is tiled, equal to itself
+    across calls and to the call without a plan; its time (events around
+    100 calls; ``device_ms`` the same calls as a CUDA graph, which also
+    shows it is capture-safe) beside the plan's build (``plan_ms``), the
+    call without a plan, the plain version's and one
+    ``torch.index_add`` call's (``library_ms``).  Then the pair form
+    ``segment_sum2`` at the bipartite level's halves, against the two
+    sums it replaces."""
+    from otamg_torch.sparse.segment import (exact, segment_plan, segment_sum,
+                                            segment_sum2, segment_sum_plain)
 
     gen = torch.Generator(device=dev).manual_seed(5)
     rows = {}
     for name, data, labels, nseg in segment_shapes(dev, gen):
         L = data.shape[0]
-        got = segment_sum(data, labels, nseg)
-        again = segment_sum(data, labels, nseg)
-        plain = segment_sum_plain(data, labels, nseg)
-        cpu = segment_sum_plain(data.cpu(), labels.cpu(), nseg)
-        scale = segment_sum_plain(data.abs(), labels, nseg).double()
-        torch.cuda.synchronize()
-        err = (got.double() - plain.double()).abs()
-        scan = nseg * L <= SCAN_LIMIT
-        # index_add_ on the card rounds in its own order: its sums are
-        # held to the kernel's within ~4 ulp of the terms' absolute sum.
-        rtol = 1e-5 if data.dtype == torch.float32 else 1e-12
-        ok = (torch.equal(got, again)
-              and bool((err <= rtol * scale + 1e-300).all())
-              and (not scan or torch.equal(got.cpu(), cpu)))
+        plan = segment_plan(labels, nseg)
         zeros = torch.zeros(nseg, dtype=data.dtype, device=dev)
-        bound_ms, bound_by = segment_bound(card, L, nseg, data.dtype)
-        ms = cuda_ms(lambda: segment_sum(data, labels, nseg))
-        row = dict(shape=name, L=L, nseg=nseg,
-                   dtype=str(data.dtype).split(".")[-1],
-                   variant="scan" if scan else "sorted", rtol=rtol,
-                   max_abs_err=float(err.max()), equal_to_cpu=(
-                       torch.equal(got.cpu(), cpu)),
-                   repeat_equal=torch.equal(got, again), ms=ms,
-                   device_ms=graph_ms(lambda: segment_sum(data, labels,
-                                                          nseg)),
-                   plain_ms=cuda_ms(lambda: segment_sum_plain(data, labels,
-                                                              nseg)),
-                   library_ms=cuda_ms(lambda: torch.index_add(
-                       zeros, 0, labels, data)),
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   share_of_bound=bound_ms / ms)
+        row, ok = segment_row(
+            name, card, lambda: segment_sum(data, labels, nseg, plan),
+            lambda: segment_plan(labels, nseg),
+            lambda: segment_sum(data, labels, nseg),
+            lambda: segment_sum_plain(data, labels, nseg),
+            lambda: torch.index_add(zeros, 0, labels, data),
+            segment_sum_plain(data.cpu(), labels.cpu(), nseg),
+            segment_sum_plain(data.abs(), labels, nseg).double(), L, nseg,
+            data.dtype, exact(nseg, L))
         emit("segment_sum", **row)
         if not ok:
             raise AssertionError(f"segment_sum {name} differs from its "
                                  "plain version or from itself")
+        rows[name] = row
+    # The pair form at the bipartite level's halves (n = m).
+    for N in (1000, 2048):
+        n = N // 2
+        labels = comps(N, dev)
+        ab = torch.randn(N, generator=gen, device=dev, dtype=torch.float64)
+        a, b = ab[:n], ab[n:]
+        plan = segment_plan(labels, N, split=n)
+        zeros = torch.zeros(N, dtype=ab.dtype, device=dev)
+        two = lambda: (segment_sum(a, labels[:n], N)
+                       + segment_sum(b, labels[n:], N))
+        cpu = (segment_sum_plain(a.cpu(), labels[:n].cpu(), N)
+               + segment_sum_plain(b.cpu(), labels[n:].cpu(), N))
+        name = f"pair{N}_{n}x{n}"
+        row, ok = segment_row(
+            name, card, lambda: segment_sum2(a, b, labels, N, plan),
+            lambda: segment_plan(labels, N, split=n),
+            lambda: segment_sum2(a, b, labels, N),
+            lambda: (segment_sum_plain(a, labels[:n], N)
+                     + segment_sum_plain(b, labels[n:], N)),
+            lambda: torch.index_add(zeros, 0, labels, ab), cpu,
+            segment_sum_plain(ab.abs(), labels, N).double(), N, N, ab.dtype,
+            exact(N, n))
+        # the two sums it replaces, bit for bit (both exact)
+        row["equal_to_two_sums"] = torch.equal(
+            segment_sum2(a, b, labels, N, plan), two())
+        emit("segment_sum2", **row)
+        if not (ok and row["equal_to_two_sums"]):
+            raise AssertionError(f"segment_sum2 {name} differs from the two "
+                                 "sums or from itself")
         rows[name] = row
     return rows
 
@@ -589,8 +661,6 @@ def phase_class1(dev):
         raise AssertionError("24x20 solve on the card disagrees with the "
                              "CPU run or with linprog")
 
-    from otamg_torch.sparse.segment import segment_sum
-
     opts = class1_opts()
     runs = {}
     res, secs, reads = run_class1(256, 256, dev, opts)
@@ -599,9 +669,9 @@ def phase_class1(dev):
     for label in ("cold", "warm", "warm"):
         # The main path's launches: the count set to 0 just before the
         # run and read just after.
-        segment_sum.launches = 0
+        zero_counts()
         res, secs, reads = run_class1(500, 500, dev, opts)
-        launches = segment_sum.launches
+        launches = counts()
         runs.setdefault((500, label), secs)
         warm = (res, secs, reads)
         emit("class1_500", run=label, seconds=secs,
@@ -609,7 +679,8 @@ def phase_class1(dev):
              segment_sum_launches=launches,
              **held_to_class1_reference(500, res))
     if launches == 0:
-        raise AssertionError("the Class-1 solve launched no segment_sum")
+        raise AssertionError("the Class-1 solve launched no segment_sum "
+                             "kernel")
     res, secs, reads = run_class1(1024, 1024, dev, opts)
     emit("class1_1024", seconds=secs, host_reads_per_outer_iter=reads,
          **held_to_class1_reference(1024, res))
@@ -798,12 +869,11 @@ def phase_drivers(dev, loop1, loop2):
     from otamg_torch.amg.hierarchy import amg_graphs
     from otamg_torch.opt import (solve_class1_chunked, solve_class1_fused,
                                  solve_class2_chunked)
-    from otamg_torch.sparse.segment import segment_sum
 
     chunked1 = lambda p, o: solve_class1_chunked(p, o, chunk=8)
     chunked2 = lambda p, o: solve_class2_chunked(p, o, chunk=8)
     amg_graphs.clear()
-    segment_sum.launches = 0
+    zero_counts()
     base, base_s, base_reads = loop1
     out = {"loop": dict(seconds=base_s, host_reads_per_outer_iter=base_reads)}
     for name, solve in (("chunked", chunked1), ("chunked_warm", chunked1),
@@ -827,7 +897,7 @@ def phase_drivers(dev, loop1, loop2):
                 and amg_graphs.replays > replays0):
             raise AssertionError(f"Class-1 500x500 {name} driver differs "
                                  "from the loop driver")
-    launches = segment_sum.launches
+    launches = counts()
     res2l, secs2l, reads2l = loop2
     captures0 = amg_graphs.captures
     replays0 = amg_graphs.replays
@@ -974,7 +1044,9 @@ def sparse_setup_solve(A, b):
 
 def phase_sparse_setup(card, dev):
     """The sparse-setup hierarchy at ``SPARSE_SETUP_N`` rows: every
-    matvec of its CSR and aggregation levels is the ELL kernel."""
+    matvec of its CSR and aggregation levels is the ELL kernel.  Returns
+    the path's ``ell_spmv`` launches, the kernel's timed rows and the
+    path's ``segment_sum`` launches."""
     from otamg_torch.amg import hierarchy
     from otamg_torch.sparse import ell_spmv, ell_spmv_plain
 
@@ -990,9 +1062,11 @@ def phase_sparse_setup(card, dev):
 
     hierarchy.ell_spmv = counted
     ell_spmv.launches = 0
+    zero_counts()
     try:
         levels, res, setup_s, solve_s = sparse_setup_solve(A, b)
         launches = ell_spmv.launches
+        seg_launches = counts()
     finally:
         hierarchy.ell_spmv = ell_spmv
     if launches == 0 or launches != sum(by_rows.values()):
@@ -1022,6 +1096,9 @@ def phase_sparse_setup(card, dev):
                launches_by_rows={str(k): v for k, v in sorted(by_rows.items())},
                launches_per_cycle=launches / max(int(res.iters), 1),
                share_of_launches_above_100k_rows=big / launches,
+               segment_sum_launches=seg_launches,
+               segment_sum_launches_per_cycle=seg_launches
+               / max(int(res.iters), 1),
                cpu=SPARSE_SETUP_REF)
     emit("sparse_setup", **row)
     if dx > 1e-8 or ref.iters != res.iters:
@@ -1042,7 +1119,7 @@ def phase_sparse_setup(card, dev):
                         dtype=torch.float64)
         timed[name] = check_kernel(name, card, lv.ell_cols, lv.ell_vals, x,
                                    1e-12)
-    return launches, timed
+    return launches, timed, seg_launches
 
 
 # The JAX package's run of the same problem and options on the CPU
@@ -1198,7 +1275,6 @@ def main() -> int:
     emit("build", seconds=build_s)
 
     from otamg_torch.sparse import ell_spmv
-    from otamg_torch.sparse.segment import segment_sum
 
     t0 = time.perf_counter()
     rows = phase_kernels(card, dev)
@@ -1206,16 +1282,16 @@ def main() -> int:
     emit("kernel_checks", seconds=time.perf_counter() - t0)
     # Each path's launches: counts set to 0 just before it, read after.
     seg = {}
-    segment_sum.launches = 0
+    zero_counts()
     launches = {"sparse_amg": phase_sparse_amg(dev)}
-    seg["sparse_amg"] = segment_sum.launches
+    seg["sparse_amg"] = counts()
     t0 = time.perf_counter()
     runs1, warm1, seg["class1"] = phase_class1(dev)
     emit("class1", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    segment_sum.launches = 0
+    zero_counts()
     runs2, warm2 = phase_class2(dev)
-    seg["class2"] = segment_sum.launches
+    seg["class2"] = counts()
     emit("class2", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     _, seg["drivers"] = phase_drivers(dev, warm1, warm2)
@@ -1227,10 +1303,8 @@ def main() -> int:
     phase_mixed(dev, f64)
     emit("mixed_all", seconds=time.perf_counter() - t0)
     phase_roofline(card, *warm1[:2])
-    segment_sum.launches = 0
-    ell_spmv.launches = 0
-    launches["sparse_setup"], _ = phase_sparse_setup(card, dev)
-    seg["sparse_setup"] = segment_sum.launches
+    launches["sparse_setup"], _, seg["sparse_setup"] = phase_sparse_setup(
+        card, dev)
     t0 = time.perf_counter()
     phase_cli()
     emit("cli", seconds=time.perf_counter() - t0)
@@ -1257,7 +1331,10 @@ def main() -> int:
         "plain_ms": seg_row["plain_ms"], "bound_ms": seg_row["bound_ms"],
         "bound_by": seg_row["bound_by"],
         "library_ms": seg_row["library_ms"],
-        "device_ms": seg_row["device_ms"],
+        "device_ms": seg_row["device_ms"], "plan_ms": seg_row["plan_ms"],
+        "noplan_ms": seg_row["noplan_ms"], "host_us": seg_row["host_us"],
+        "pair_ms": seg_rows["pair1000_500x500"]["ms"],
+        "pair_device_ms": seg_rows["pair1000_500x500"]["device_ms"],
         "variant": seg_row["variant"]}]}))
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi_line)

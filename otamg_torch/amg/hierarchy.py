@@ -15,6 +15,10 @@
   packages' level arrays compare shape for shape.
 * **One hierarchy for all graph components**, with per-component
   kernel-projected smoothing through segment sums over component labels.
+  Every level carries a :class:`~otamg_torch.sparse.segment.SegmentPlan`
+  of its labels, made once at setup, so each sum of a sweep, a deflation
+  or a coarse solve is one kernel launch with no sort (the bipartite
+  level's is a pair plan: one launch sums both halves).
 * **Cycles run off a visit tape**, the unrolled V/W/F recursion, executed
   here by a Python loop; ``fuse_deep`` replaces the tape below level 0 by
   one dense matrix per hierarchy.
@@ -42,6 +46,7 @@ from otamg_torch.config import AMGOptions, Cycle
 from otamg_torch.device import fetch
 from otamg_torch.krylov.pcg import pcg
 from otamg_torch.sparse.kernels import ell_spmv
+from otamg_torch.sparse.segment import SegmentPlan, segment_plan, segment_sum2
 
 
 class BipartiteLevel(NamedTuple):
@@ -57,6 +62,7 @@ class BipartiteLevel(NamedTuple):
     xx: torch.Tensor       # (n + m,) per-node xi^T A xi of its component
     Exi1: torch.Tensor     # (m,) E @ nsp[:n], carried by the fused smoother
     Etxi2: torch.Tensor    # (n,) E^T @ nsp[n:]
+    plan: SegmentPlan      # pair plan of labels (split n), for segment_sum2
 
 
 class DenseLevel(NamedTuple):
@@ -73,6 +79,7 @@ class DenseLevel(NamedTuple):
     #                        where lambda_i > 4 eps lambda_max, else 0 (see
     #                        otamg.amg.hierarchy.DenseLevel for why an
     #                        exact coarse solve is unstable)
+    plan: SegmentPlan      # plan of labels into the fine level's N slots
 
 
 class CSRLevel(NamedTuple):
@@ -86,6 +93,7 @@ class CSRLevel(NamedTuple):
     nsp: torch.Tensor       # (N,) near-singular mask
     Axi: torch.Tensor       # (N,)
     xx: torch.Tensor        # (N,)
+    plan: SegmentPlan       # plan of labels into the fine level's N slots
 
 
 class AggCSRLevel(NamedTuple):
@@ -102,7 +110,20 @@ class AggCSRLevel(NamedTuple):
     nsp: torch.Tensor       # (N,) near-singular mask
     Axi: torch.Tensor       # (N,)
     xx: torch.Tensor        # (N,)
+    plan: SegmentPlan       # plan of labels into the fine level's N slots
     agg: int                # aggregation factor from the parent level
+
+
+def _leaves(lv) -> list:
+    """A level's tensors in field order, its plan's spliced in."""
+    return [t for f in lv for t in (f if isinstance(f, SegmentPlan) else (f,))]
+
+
+def _from_leaves(cls, leaves):
+    """The level of type ``cls`` whose :func:`_leaves` are ``leaves``."""
+    it = iter(leaves)
+    return cls(*(SegmentPlan(*(next(it) for _ in SegmentPlan._fields))
+                 if f == "plan" else next(it) for f in cls._fields))
 
 
 def _lvl_size(lv) -> int:
@@ -177,10 +198,11 @@ def _level0_ops(lv):
     return dense_matvec, dense_smooth_apply
 
 
-def _deflate(e, xi, nsp, labels, safe_cnt, nseg: int):
-    """``e`` minus its mean over every near-singular component."""
-    mean = segment_sum(e * xi, labels, nseg) / safe_cnt
-    return e - xi * torch.where(nsp, mean[labels], 0.0)
+def _deflate(e, xi, lv, safe_cnt, nseg: int):
+    """``e`` minus its mean over every near-singular component of the
+    level ``lv``."""
+    mean = segment_sum(e * xi, lv.labels, nseg, lv.plan) / safe_cnt
+    return e - xi * torch.where(lv.nsp, mean[lv.labels], 0.0)
 
 
 def _projected_smooth(matvec, smooth_apply, lv, e, r, smoth_it: int,
@@ -199,16 +221,16 @@ def _projected_smooth(matvec, smooth_apply, lv, e, r, smoth_it: int,
     cycle."""
     xi = lv.nsp.to(r.dtype)
     if deflated:
-        cnt = segment_sum(xi, lv.labels, nseg)
+        cnt = segment_sum(xi, lv.labels, nseg, lv.plan)
         safe_cnt = torch.where(cnt > 0, cnt, 1.0)
         for _ in range(smoth_it):
             e = e + smooth_apply(lv, r - matvec(lv, e), transpose)
-            e = _deflate(e, xi, lv.nsp, lv.labels, safe_cnt, nseg)
+            e = _deflate(e, xi, lv, safe_cnt, nseg)
         return e
     safe_xx = torch.where(torch.abs(lv.xx) > 0, lv.xx, 1.0)
     for _ in range(smoth_it):
         g = r - matvec(lv, e)
-        xig = segment_sum(g * xi, lv.labels, nseg)
+        xig = segment_sum(g * xi, lv.labels, nseg, lv.plan)
         coef = torch.where(lv.nsp, xig[lv.labels] / safe_xx, 0.0)
         e = e + (xi * coef + smooth_apply(lv, g - lv.Axi * coef, transpose))
     return e
@@ -225,7 +247,9 @@ def _projected_smooth_bip(lv: BipartiteLevel, e, r, smoth_it: int,
     pre-smoothing entry, where the carried products start at zero.
     ``deflated`` projects each component mean out after the sweep, and
     the carried products take the projection through ``Exi1``/``Etxi2``
-    (``E`` has no edge across components)."""
+    (``E`` has no edge across components).  Each per-component sum over
+    the two halves is one :func:`segment_sum2` over the level's pair
+    plan."""
     n = lv.W.shape[0]
     m = lv.E.shape[0]
     itk = lv.inv_tk
@@ -260,14 +284,14 @@ def _projected_smooth_bip(lv: BipartiteLevel, e, r, smoth_it: int,
         return d1, d2, t, tw
 
     if deflated:
-        cnt = segment_sum(xi1, lab1, nseg) + segment_sum(xi2, lab2, nseg)
+        cnt = segment_sum2(xi1, xi2, lv.labels, nseg, lv.plan)
         safe_cnt = torch.where(cnt > 0, cnt, 1.0)
         for _ in range(smoth_it):
             d1, d2, t, tw = directed(r1 - g1d * e1 + itk * w,
                                      r2 - g2d * e2 + itk * u)
             e1, e2 = e1 + d1, e2 + d2
-            mean = (segment_sum(e1 * xi1, lab1, nseg)
-                    + segment_sum(e2 * xi2, lab2, nseg)) / safe_cnt
+            mean = segment_sum2(e1 * xi1, e2 * xi2, lv.labels, nseg,
+                                lv.plan) / safe_cnt
             m1 = torch.where(nsp1, mean[lab1], 0.0)
             m2 = torch.where(nsp2, mean[lab2], 0.0)
             e1, e2 = e1 - xi1 * m1, e2 - xi2 * m2
@@ -281,8 +305,7 @@ def _projected_smooth_bip(lv: BipartiteLevel, e, r, smoth_it: int,
     for _ in range(smoth_it):
         gg1 = r1 - g1d * e1 + itk * w
         gg2 = r2 - g2d * e2 + itk * u
-        xig = (segment_sum(gg1 * xi1, lab1, nseg)
-               + segment_sum(gg2 * xi2, lab2, nseg))
+        xig = segment_sum2(gg1 * xi1, gg2 * xi2, lv.labels, nseg, lv.plan)
         c1 = torch.where(nsp1, xig[lab1] / sxx1, 0.0)
         c2 = torch.where(nsp2, xig[lab2] / sxx2, 0.0)
         d1, d2, t, tw = directed(gg1 - Axi1 * c1, gg2 - Axi2 * c2)
@@ -351,7 +374,8 @@ def setup_hierarchy(E, g, inv_tk, labels, nsp, opts: AMGOptions,
     xi2 = nsp[n:].to(dtype)
     ones = torch.ones(N, dtype=dtype, device=E.device)
     lv1 = BipartiteLevel(E, g, inv_tk, W, labels, nsp, torch.zeros_like(ones),
-                         ones, E @ xi1, E.T @ xi2)
+                         ones, E @ xi1, E.T @ xi2,
+                         segment_plan(labels, nseg, split=n))
     if gk is None:
         Axi1 = bip_matvec(lv1, ones)
         xxseg = segment_sum(Axi1, labels, nseg)
@@ -379,9 +403,11 @@ def setup_hierarchy(E, g, inv_tk, labels, nsp, opts: AMGOptions,
 def _build_dense_chain(A0, act0, lab0, nsp0, caps, opts: AMGOptions,
                        key: torch.Tensor, nseg: int,
                        axi0=None, xxseg=None, ok0=True,
-                       exit_every: int = 1) -> tuple:
+                       exit_every: int = 1, plan_nseg=None) -> tuple:
     """Chain of padded dense levels (MIS coarsening) from ``A0`` at
     capacity ``caps[0]``, ending with the eigendecomposed coarsest level.
+    Each level's labels get a plan into ``plan_nseg`` slots (default
+    ``nseg``), the solve's ``nseg``.
 
     With ``axi0``/``xxseg`` the kernel-projection quantities propagate
     analytically (``Axi_{l+1} = P^T Axi_l``, ``xx`` level-invariant per
@@ -396,6 +422,7 @@ def _build_dense_chain(A0, act0, lab0, nsp0, caps, opts: AMGOptions,
     ok_cur = torch.as_tensor(ok0, dtype=torch.bool, device=dev)
     axi_cur = axi0
     P_cur = torch.zeros(0, 0, dtype=dtype, device=dev)
+    plan_nseg = nseg if plan_nseg is None else plan_nseg
     no_vec = torch.zeros(0, 0, dtype=dtype, device=dev)
     no_val = torch.zeros(0, dtype=dtype, device=dev)
 
@@ -421,7 +448,7 @@ def _build_dense_chain(A0, act0, lab0, nsp0, caps, opts: AMGOptions,
         lvd = DenseLevel(A_cur, act_cur, P_cur, lab_cur, nsp_cur & ok_cur,
                          torch.zeros(cap, dtype=dtype, device=dev),
                          torch.ones(cap, dtype=dtype, device=dev),
-                         evecs, einv)
+                         evecs, einv, segment_plan(lab_cur, plan_nseg))
         if axi_cur is None:
             xi = act_cur.to(dtype)
             Axi = dense_matvec(lvd, xi)
@@ -474,7 +501,7 @@ def setup_hierarchy_generic(A, opts: AMGOptions, key: torch.Tensor,
     head = chain[0]
     if csr is not None and len(chain) > 1:
         head = CSRLevel(csr.ell_cols, csr.ell_vals, torch.diagonal(head.A),
-                        head.labels, head.nsp, head.Axi, head.xx)
+                        head.labels, head.nsp, head.Axi, head.xx, head.plan)
     return head, chain[1:]
 
 
@@ -527,9 +554,10 @@ def setup_hierarchy_sparse(csr, opts: AMGOptions, key: torch.Tensor,
         one = torch.ones(n, dtype=dtype, device=dev)
         hit = c == torch.arange(n, dtype=c.dtype, device=dev)[:, None]
         dg = (v * hit).sum(dim=1)
+        plan = segment_plan(z, N)
         if k is None:
-            return CSRLevel(c, v, dg, z, f, one, one)
-        return AggCSRLevel(c, v, dg, z, f, one, one, k)
+            return CSRLevel(c, v, dg, z, f, one, one, plan)
+        return AggCSRLevel(c, v, dg, z, f, one, one, plan, k)
 
     head = mk_sparse_level(cols, vals, N, None)
     chain: list = []
@@ -558,7 +586,8 @@ def setup_hierarchy_sparse(csr, opts: AMGOptions, key: torch.Tensor,
     dchain = list(_build_dense_chain(
         Ad, torch.ones(n, dtype=torch.bool, device=dev),
         torch.zeros(n, dtype=torch.int64, device=dev),
-        torch.zeros(n, dtype=torch.bool, device=dev), caps, opts, key, n))
+        torch.zeros(n, dtype=torch.bool, device=dev), caps, opts, key, n,
+        plan_nseg=N))
     # The dense head's transfer from the last sparse level is the unit
     # aggregation matrix (at most agg * crossover rows); the identity
     # when no aggregation happened (N already at the crossover).
@@ -681,9 +710,8 @@ def _coarse_solve(lv, r, nseg: int, deflated: bool, coarse_retol: float,
         e_c = lv.evecs @ (lv.einv * (lv.evecs.T @ r))
         if deflated:
             xi = lv.nsp.to(e_c.dtype)
-            cnt = segment_sum(xi, lv.labels, nseg)
-            e_c = _deflate(e_c, xi, lv.nsp, lv.labels,
-                           torch.where(cnt > 0, cnt, 1.0), nseg)
+            cnt = segment_sum(xi, lv.labels, nseg, lv.plan)
+            e_c = _deflate(e_c, xi, lv, torch.where(cnt > 0, cnt, 1.0), nseg)
         return e_c
     if isinstance(lv, BipartiteLevel):
         dg = lv.g
@@ -1000,12 +1028,13 @@ def amg_solve(lv1, dense: Sequence[DenseLevel], b: torch.Tensor,
              torch.zeros((), dtype=torch.int64, device=b.device), res0 != 0)
 
     if exit_every > 1 and _capturable(lv1, dense, b, deep_D, coarse_direct):
-        nlv1 = len(lv1)
-        nd = len(DenseLevel._fields)
+        nlv1 = len(_leaves(lv1))
+        nd = len(_leaves(dense[0]))
 
         def run_block(inputs, st):
-            lv = BipartiteLevel(*inputs[:nlv1])
-            dl = [DenseLevel(*inputs[nlv1 + i * nd:nlv1 + (i + 1) * nd])
+            lv = _from_leaves(BipartiteLevel, inputs[:nlv1])
+            dl = [_from_leaves(DenseLevel,
+                               inputs[nlv1 + i * nd:nlv1 + (i + 1) * nd])
                   for i in range(len(dense))]
             dD = inputs[-3] if deep_D is not None else None
             for _ in range(exit_every):
@@ -1013,7 +1042,7 @@ def amg_solve(lv1, dense: Sequence[DenseLevel], b: torch.Tensor,
                                  inputs[-1], retol_eff, opts.maxit, st)
             return st
 
-        inputs = [*lv1, *(t for lv in dense for t in lv),
+        inputs = [*_leaves(lv1), *(t for lv in dense for t in _leaves(lv)),
                   *([deep_D] if deep_D is not None else []), b, safe0]
         sig = (tuple((tuple(t.shape), t.dtype, t.device) for t in inputs),
                deep_D is not None, opts.smoth, gamma, deflated, exit_every,

@@ -6,33 +6,53 @@
 // per-component kernel projections of the smoother, the deflated
 // means).  XLA lowers it to a scatter-add; the JAX package has no Pallas
 // kernel for it.  PyTorch's index_add_ on the card adds with atomics in
-// no fixed order, so two runs of one solve on the card took different
-// paths; both variants here fix the order of every sum, and neither
-// synchronises with the host, so the AMG cycle that calls them can be
-// captured in a CUDA graph.
+// no fixed order, so two runs of one solve on the card would take
+// different paths; every sum here comes in a fixed order, and no launch
+// synchronises with the host or allocates, so the AMG cycle that calls
+// them can be captured in a CUDA graph.
 //
-// Bound: each input is read once and out written once, L*(s + 8) +
-// nseg*s bytes for L elements of s bytes, and one add per element, so
-// the function is bound by memory traffic; at the sizes of the main path
-// (L, nseg of a few thousand) a call is a few microseconds of latency.
+// Bound: each input is read once and out written once (L*(s + 4) +
+// nseg*(s + 4) bytes for L elements of s bytes through a plan), one add
+// per element, so the function is bound by memory traffic.  At the main
+// path's sizes (L, nseg of a few thousand) a call is a few microseconds
+// of latency, and the floor is the chain of dependent adds of the
+// largest segment, which the CPU's order forces: one f64 add's latency
+// (about 4.1 ns on the H100) an element.
 //
-// * scan (nseg * L small, the bipartite hierarchy of the OT solves).
-//   Thread s owns segment s and walks over all L elements in index order,
-//   staged tile by tile in shared memory, where every thread reads the
-//   same element at once (a broadcast), adding those of its segment.  The
-//   adds come in the order of the CPU's index_add_, so a sum on the card
-//   equals the CPU's bit for bit.  No sort, one launch.
-// * sorted (large inputs, the sparse levels, where one segment may hold
-//   a million elements).  The wrapper sorts the labels (stable) and finds
-//   each segment's run.  Pass 1 sums the sorted positions tile by tile
-//   (2048 a block): a tile inside one segment by a fixed tree, otherwise
-//   each run in order by one thread; pass 2, a thread per segment, adds
-//   the tile sums of a segment that spans tiles in tile order.
-//   Deterministic, though not in the CPU's order.
+// * plan (segment_sum_plan): the labels were sorted once per labels
+//   tensor (sparse/segment.py::segment_plan): `order` lists the
+//   positions segment by segment, each run in index order, `offsets`
+//   holds the run bounds, and a pair plan also `mid`, where each run
+//   passes from the first vector to the second.  The labels are not read.
+//   Segment blocks give each thread one segment whose runs hold at most
+//   kLaneMax elements, summed from 0 in index order.  A segment with a
+//   longer run goes to work blocks, which come first in the grid so that
+//   the longest work starts first.  In an exact plan (nseg * L <=
+//   SCAN_LIMIT for each half, the Class-1/2 hierarchies) the work blocks
+//   find such runs themselves (no list to build) and add each run's
+//   elements from 0 one after another in index order, so every sum
+//   equals the CPU's index_add_ bit for bit.  That chain bounds an exact
+//   call, and the design keeps everything else off it: seven warps of the
+//   block stage the run in shared memory, kSeq values a round, while one
+//   thread adds the round before, reading kLook values ahead of its adds.
+//   Otherwise (a tiled plan) the long runs are in the plan's tile list: a
+//   long run (the sparse levels, a million nodes in one segment) is cut
+//   into tiles of kTile elements, each summed by a fixed tree with every
+//   load issued before the adds (the run of an exact half is one tile,
+//   summed in order); the last tile block of the segment to finish adds
+//   the partials in tile order, and the bytes moved bound it.  A pair call (the bipartite smoother) sums each half
+//   in its own order and adds the two once: segment_sum(a) +
+//   segment_sum(b) in one launch.
+// * scan (segment_sum_scan; a call without a plan, nseg * L small): thread
+//   s walks all L elements in index order, staged tile by tile in shared
+//   memory, where every thread reads the same element at once (a
+//   broadcast), adding those of its segment.  O(nseg * L) work, no sort,
+//   one launch: the one-off sums on labels made just before.
 //
-// C interface, loaded with ctypes: segment_sum_scan / segment_sum_sorted
-// launch on the given stream and device, do not synchronise and return
-// cudaGetLastError() (cudaErrorInvalidValue for a bad dtype code).
+// C interface, loaded with ctypes: each function takes its arguments
+// packed in one int64 array, launches on the given stream and device,
+// does not synchronise and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a bad dtype code).
 
 #include <cuda_runtime.h>
 
@@ -40,19 +60,32 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 2048;  // elements staged in shared memory per pass
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;     // scan blocks
+constexpr int kStage = 2048;      // scan: elements staged in shared memory
+constexpr int kLaneMax = 32;      // plan: longest run a thread sums alone;
+                                  // sparse/segment.py::LANE_MAX
+constexpr int kChunk = 8;         // plan: values a thread loads at a time
+constexpr int kTile = 4096;       // plan: elements of a tree tile;
+                                  // sparse/segment.py::TILE
+constexpr int kTileFields = 7;    // sparse/segment.py::TILE_FIELDS
+constexpr int kWorkBlocks = 264;  // plan: work blocks at most, 2 an SM
+constexpr int kPlanThreads = 256; // plan: a thread a segment, or a tile
+constexpr int kStagers = kPlanThreads - 32;  // warps 1-7 stage a chain
+constexpr int kSeq = 2048;        // chain: values staged a round
+constexpr int kSeqEach = (kSeq + kStagers - 1) / kStagers;
+constexpr int kLook = 8;          // chain: shared values read ahead
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     scan_kernel(const T* __restrict__ data, const int64_t* __restrict__ labels,
                 T* __restrict__ out, int64_t L, int64_t nseg) {
-  __shared__ int32_t lab_s[kTile];
-  __shared__ T val_s[kTile];
+  __shared__ int32_t lab_s[kStage];
+  __shared__ T val_s[kStage];
   const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   T acc = T(0);
-  for (int64_t base = 0; base < L; base += kTile) {
-    const int n = static_cast<int>(L - base < kTile ? L - base : kTile);
+  for (int64_t base = 0; base < L; base += kStage) {
+    const int n = static_cast<int>(L - base < kStage ? L - base : kStage);
     __syncthreads();
     for (int j = threadIdx.x; j < n; j += kThreads) {
       const int64_t lab = labels[base + j];
@@ -69,104 +102,329 @@ __global__ void __launch_bounds__(kThreads)
   if (s < nseg) out[s] = acc;
 }
 
-constexpr int kSortedTile = 2048;  // sorted positions per tile block
-
-// Sorted variant, pass 1: block b owns sorted positions [b*T, b*T + T).
-// A tile inside one segment is summed by a fixed tree; otherwise each run
-// of equal labels is summed in order by the thread at its start.  A run
-// that is a whole segment goes to out; each tile also keeps the sums of
-// its first and its last run for pass 2.
+// The summed values: position i < split reads a[i], the others
+// b[i - split] (a single call passes split = L).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    tile_kernel(const T* __restrict__ data, const int64_t* __restrict__ order,
-                const int64_t* __restrict__ sl, int64_t L,
-                T* __restrict__ out, T* __restrict__ first_sum,
-                T* __restrict__ last_sum) {
-  __shared__ int64_t lab[kSortedTile];
-  __shared__ T val[kSortedTile];
-  __shared__ T red[kThreads];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kSortedTile;
-  const int n = static_cast<int>(L - base < kSortedTile ? L - base
-                                                          : kSortedTile);
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    lab[j] = sl[base + j];
-    val[j] = data[order[base + j]];
+struct Src {
+  const T* __restrict__ a;
+  const T* __restrict__ b;
+  int split;
+  __device__ __forceinline__ T operator()(int i) const {
+    return i < split ? a[i] : b[i - split];
+  }
+};
+
+struct Plan {
+  const int32_t* __restrict__ order;
+  const int32_t* __restrict__ offsets;
+  const int32_t* __restrict__ mid;    // null: one run a segment
+  const int32_t* __restrict__ tiles;  // (ntiles, kTileFields)
+  void* partials;                     // (ntiles,) 8-byte slots
+  int32_t* counts;                    // (ntiles,), 0 between calls
+};
+
+// order[lo..hi), hi - lo <= kLaneMax, summed from 0 in order by one
+// thread (the CPU's order), kChunk at a time, the next chunk's values
+// and the positions of the one after loading while a chunk is added.
+template <typename T>
+__device__ T lane_seq(const Src<T>& src, const int32_t* __restrict__ order,
+                      int lo, int hi) {
+  int idx[kChunk];
+  T v[kChunk];
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k)
+    idx[k] = lo + k < hi ? order[lo + k] : 0;
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k) v[k] = lo + k < hi ? src(idx[k]) : T(0);
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k)
+    idx[k] = lo + kChunk + k < hi ? order[lo + kChunk + k] : 0;
+  T acc = T(0);
+  for (int base = lo; base < hi; base += kChunk) {
+    T cur[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) cur[k] = v[k];
+    const int next = base + kChunk;
+    if (next < hi) {
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        v[k] = next + k < hi ? src(idx[k]) : T(0);
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        idx[k] = next + kChunk + k < hi ? order[next + kChunk + k] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+      if (base + k < hi) acc += cur[k];
+  }
+  return acc;
+}
+
+// Stager t (of kStagers) writes its slots j = t, t + kStagers, ... of one
+// round: dst[j] = the value at order[base + j], or +0 past hi.  All its
+// loads are issued before the first store.
+template <typename T>
+__device__ __forceinline__ void stage(const Src<T>& src,
+                                      const int32_t* __restrict__ order,
+                                      int base, int hi, T* dst, int t) {
+  int idx[kSeqEach];
+  T v[kSeqEach];
+#pragma unroll
+  for (int k = 0; k < kSeqEach; ++k) {
+    const int j = t + k * kStagers;
+    idx[k] = (j < kSeq && base + j < hi) ? order[base + j] : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < kSeqEach; ++k) {
+    const int j = t + k * kStagers;
+    v[k] = (j < kSeq && base + j < hi) ? src(idx[k]) : T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < kSeqEach; ++k) {
+    const int j = t + k * kStagers;
+    if (j < kSeq) dst[j] = v[k];
+  }
+}
+
+// acc + buf[0] + buf[1] + ... + buf[n - 1], one add after another, n a
+// multiple of 2 kLook: the reads of the next kLook values are issued
+// before the adds of the current ones, so no add waits on shared memory
+// (buf holds kLook slots past n).  The +0 that pads a round leaves a sum
+// that started at +0 as it is (such a sum is never -0).
+template <typename T>
+__device__ __forceinline__ T chain(const T* buf, int n, T acc) {
+  T v0[kLook], v1[kLook];
+#pragma unroll
+  for (int k = 0; k < kLook; ++k) v0[k] = buf[k];
+  for (int j0 = 0; j0 < n; j0 += 2 * kLook) {
+#pragma unroll
+    for (int k = 0; k < kLook; ++k) v1[k] = buf[j0 + kLook + k];
+#pragma unroll
+    for (int k = 0; k < kLook; ++k) acc += v0[k];
+#pragma unroll
+    for (int k = 0; k < kLook; ++k) v0[k] = buf[j0 + 2 * kLook + k];
+#pragma unroll
+    for (int k = 0; k < kLook; ++k) acc += v1[k];
+  }
+  return acc;
+}
+
+// order[lo..hi) summed from 0 in index order (the CPU's order) by thread
+// 0 of the block, the result in thread 0.  Warps 1-7 stage round r + 1
+// in one buffer while thread 0 adds round r from the other.  All threads
+// call it.
+template <typename T>
+__device__ T seq_sum(const Src<T>& src, const int32_t* __restrict__ order,
+                     int lo, int hi, T (*buf)[kSeq + kLook]) {
+  const int t = static_cast<int>(threadIdx.x) - 32;
+  if (t >= 0) stage(src, order, lo, hi, buf[0], t);
+  __syncthreads();
+  T acc = T(0);
+  int r = 0;
+  for (int base = lo; base < hi; base += kSeq) {
+    if (threadIdx.x == 0) {
+      const int n = hi - base < kSeq ? hi - base : kSeq;
+      acc = chain(buf[r], (n + 2 * kLook - 1) & ~(2 * kLook - 1), acc);
+    } else if (t >= 0 && base + kSeq < hi) {
+      stage(src, order, base + kSeq, hi, buf[r ^ 1], t);
+    }
+    __syncthreads();
+    r ^= 1;
+  }
+  return acc;
+}
+
+// Tile t of a long segment.  A tile that is the segment's only one writes
+// out[seg]; otherwise its partial goes to plan scratch and the last tile
+// of the segment to finish adds the partials in tile order (the first
+// run's, then the second's) and writes out[seg].  All threads call it.
+template <typename T>
+__device__ void tile_sum(const Src<T>& src, const Plan& p, T* out, bool pair,
+                         int t, T (*buf)[kSeq + kLook]) {
+  __shared__ T red[kPlanThreads / 32];
+  __shared__ bool last;
+  const int32_t* d = p.tiles + static_cast<int64_t>(t) * kTileFields;
+  const int seg = d[0], lo = d[1], hi = d[2], first = d[3], na = d[4],
+            n = d[5];
+  const bool seq = d[6] != 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T r = T(0);
+  if (seq) {
+    r = seq_sum(src, p.order, lo, hi, buf);
+  } else {
+    // kTile = 16 positions a thread: every load issued before the adds.
+    constexpr int kEach = kTile / kPlanThreads;
+    int idx[kEach];
+    T v[kEach];
+#pragma unroll
+    for (int k = 0; k < kEach; ++k) {
+      const int q = lo + threadIdx.x + k * kPlanThreads;
+      idx[k] = q < hi ? p.order[q] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kEach; ++k) {
+      const int q = lo + threadIdx.x + k * kPlanThreads;
+      v[k] = q < hi ? src(idx[k]) : T(0);
+    }
+    T acc = T(0);
+#pragma unroll
+    for (int k = 0; k < kEach; ++k) acc += v[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+    if (lane == 0) red[warp] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      r = red[0];
+#pragma unroll
+      for (int w = 1; w < kPlanThreads / 32; ++w) r += red[w];
+    }
+  }
+  if (n == 1) {
+    // The other run is empty: r + 0 (or 0 + r) is r, which is never -0.
+    if (threadIdx.x == 0) out[seg] = r;
+    __syncthreads();  // red and buf are reused by the next tile
+    return;
+  }
+  T* part = static_cast<T*>(p.partials);
+  if (threadIdx.x == 0) {
+    part[t] = r;
+    __threadfence();
+    last = atomicAdd(p.counts + first, 1) == n - 1;
   }
   __syncthreads();
-  const bool starts0 = base == 0 || sl[base - 1] != lab[0];
-  const bool endsn = base + n == L || sl[base + n] != lab[n - 1];
-  if (lab[0] == lab[n - 1]) {
-    T acc = T(0);
-    for (int j = threadIdx.x; j < n; j += kThreads) acc += val[j];
-    red[threadIdx.x] = acc;
+  if (last && threadIdx.x == 0) {
+    __threadfence();
+    T ra = T(0), rb = T(0);
+    for (int k = first; k < first + na; ++k) ra += __ldcg(part + k);
+    for (int k = first + na; k < first + n; ++k) rb += __ldcg(part + k);
+    out[seg] = pair ? ra + rb : ra;
+    p.counts[first] = 0;
+  }
+  __syncthreads();  // red, last and buf are reused by the next tile
+}
+
+// Units u of an exact plan (no tile list): a run, u = 2 s + half in a
+// pair plan, u = s otherwise.  The block takes the units u = blockIdx.x,
+// blockIdx.x + nblk, ... of segments with a run longer than kLaneMax,
+// and sums each from 0 in index order (every nonempty run of such a
+// segment, so that its units complete it).  A pair segment's two runs
+// go to two blocks at once; the second to finish adds the two sums,
+// first run first, from plan scratch (partials[2 s + half], counts[s]).
+template <typename T>
+__device__ void chain_units(const Src<T>& src, const Plan& p, T* out,
+                            int nseg, bool pair, int nblk,
+                            T (*buf)[kSeq + kLook]) {
+  __shared__ int found[kPlanThreads][3];  // (unit, run start, run end)
+  __shared__ int nfound;
+  const int nunits = pair ? 2 * nseg : nseg;
+  for (int pass = 0; pass * kPlanThreads * nblk < nunits; ++pass) {
+    if (threadIdx.x == 0) nfound = 0;
     __syncthreads();
-    for (int w = kThreads / 2; w > 0; w >>= 1) {
-      if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-      __syncthreads();
+    const int u = (pass * kPlanThreads + threadIdx.x) * nblk + blockIdx.x;
+    if (u < nunits) {
+      const int seg = pair ? u >> 1 : u, half = pair ? u & 1 : 0;
+      const int lo = p.offsets[seg], hi = p.offsets[seg + 1];
+      const int mid = pair ? p.mid[seg] : hi;
+      const int r0 = half ? mid : lo, r1 = half ? hi : mid;
+      if ((mid - lo > kLaneMax || hi - mid > kLaneMax) && r1 > r0) {
+        const int k = atomicAdd(&nfound, 1);
+        found[k][0] = u;
+        found[k][1] = r0;
+        found[k][2] = r1;
+      }
     }
-    if (threadIdx.x == 0) {
-      first_sum[blockIdx.x] = last_sum[blockIdx.x] = red[0];
-      if (starts0 && endsn) out[lab[0]] = red[0];
+    __syncthreads();
+    const int n = nfound;
+    for (int i = 0; i < n; ++i) {
+      const int uu = found[i][0];
+      const T r = seq_sum(src, p.order, found[i][1], found[i][2], buf);
+      const int seg = pair ? uu >> 1 : uu;
+      const int lo = p.offsets[seg], hi = p.offsets[seg + 1];
+      const int mid = pair ? p.mid[seg] : hi;
+      if (threadIdx.x == 0) {
+        if (mid == lo || hi == mid) {
+          // One run: r + 0 (or 0 + r) is r, which is never -0.
+          out[seg] = r;
+        } else {
+          T* part = static_cast<T*>(p.partials);
+          part[uu] = r;
+          __threadfence();
+          if (atomicAdd(p.counts + seg, 1) == 1) {
+            __threadfence();
+            out[seg] = __ldcg(part + 2 * seg) + __ldcg(part + 2 * seg + 1);
+            p.counts[seg] = 0;
+          }
+        }
+      }
+      __syncthreads();  // buf and found are reused
+    }
+  }
+}
+
+// Blocks [0, work_blocks) are work blocks: tile blocks, which walk the
+// plan's tile list (its used entries come first), or, for an exact plan
+// (ntiles = 0), chain blocks (chain_units).  The rest are segment
+// blocks, a thread a segment; a segment with a run longer than kLaneMax
+// is left to the work blocks.
+template <typename T>
+__global__ void __launch_bounds__(kPlanThreads, 4)
+    plan_kernel(Src<T> src, Plan p, T* __restrict__ out, int nseg,
+                int work_blocks, int ntiles, bool pair) {
+  __shared__ T buf[2][kSeq + kLook];
+  if (static_cast<int>(blockIdx.x) < work_blocks) {
+    if (ntiles == 0) {
+      chain_units(src, p, out, nseg, pair, work_blocks, buf);
+      return;
+    }
+    for (int t = blockIdx.x; t < ntiles; t += work_blocks) {
+      if (p.tiles[static_cast<int64_t>(t) * kTileFields] < 0) break;
+      tile_sum(src, p, out, pair, t, buf);
     }
     return;
   }
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    if (j > 0 && lab[j] == lab[j - 1]) continue;  // not a run's start
-    T acc = T(0);
-    int e = j;
-    for (; e < n && lab[e] == lab[j]; ++e) acc += val[e];
-    if (j == 0) first_sum[blockIdx.x] = acc;
-    if (e == n) last_sum[blockIdx.x] = acc;
-    if ((j > 0 || starts0) && (e < n || endsn)) out[lab[j]] = acc;
-  }
+  const int s = (blockIdx.x - work_blocks) * kPlanThreads + threadIdx.x;
+  if (s >= nseg) return;
+  const int lo = p.offsets[s], hi = p.offsets[s + 1];
+  const int mid = pair ? p.mid[s] : hi;
+  if (mid - lo > kLaneMax || hi - mid > kLaneMax) return;
+  const T ra = lane_seq(src, p.order, lo, mid);
+  out[s] = pair ? ra + lane_seq(src, p.order, mid, hi) : ra;
 }
 
-// Sorted variant, pass 2: one thread per segment.  An empty segment
-// gets 0; one that spans tiles adds its first tile's last run, the
-// tiles inside it and its last tile's first run, in order.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    combine_kernel(const int64_t* __restrict__ offsets,
-                   const T* __restrict__ first_sum,
-                   const T* __restrict__ last_sum, T* __restrict__ out,
-                   int64_t nseg) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       s < nseg; s += stride) {
-    const int64_t a = offsets[s];
-    const int64_t b = offsets[s + 1];
-    if (a == b) {
-      out[s] = T(0);
-      continue;
-    }
-    const int64_t ta = a / kSortedTile;
-    const int64_t tb = (b - 1) / kSortedTile;
-    if (ta == tb) continue;  // whole inside one tile: pass 1 wrote it
-    T acc = last_sum[ta];
-    for (int64_t t = ta + 1; t <= tb; ++t) acc += first_sum[t];
-    out[s] = acc;
-  }
-}
-
-int blocks_for(int64_t n, int per_block, int cap) {
-  const int64_t b = (n + per_block - 1) / per_block;
-  return static_cast<int>(b < 1 ? 1 : (b > cap ? cap : b));
+int launch_plan(const void* a, const void* b, int split, const Plan& p,
+                int ntiles, void* out, int nseg, bool pair, cudaStream_t st) {
+  const int seg_blocks = (nseg + kPlanThreads - 1) / kPlanThreads;
+  // An exact plan: a chain block for each 32 units, at most kWorkBlocks.
+  const int want = ntiles > 0 ? ntiles : ((pair ? 2 : 1) * nseg + 31) / 32;
+  const int work_blocks = want < kWorkBlocks ? want : kWorkBlocks;
+  const Src<T> src{static_cast<const T*>(a), static_cast<const T*>(b), split};
+  plan_kernel<T><<<work_blocks + seg_blocks, kPlanThreads, 0, st>>>(
+      src, p, static_cast<T*>(out), nseg, work_blocks, ntiles, pair);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 float64, 2 int64.
-extern "C" int segment_sum_scan(const void* data, const void* labels,
-                                void* out, int64_t L, int64_t nseg,
-                                int dtype, void* stream, int device) {
+// dtype codes: 0 float32, 1 float64, 2 int64.  Each entry point takes
+// its arguments packed as int64 (pointers as addresses), which keeps
+// the host's cost of a call low.
+//
+// segment_sum_scan: {data, labels (int64), out, L, nseg, dtype, stream,
+// device}.
+extern "C" int segment_sum_scan(const int64_t* args) {
+  const void* data = reinterpret_cast<const void*>(args[0]);
+  const int64_t* lab = reinterpret_cast<const int64_t*>(args[1]);
+  void* out = reinterpret_cast<void*>(args[2]);
+  const int64_t L = args[3], nseg = args[4];
+  const int dtype = static_cast<int>(args[5]);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(args[6]);
   if (nseg <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = cudaSetDevice(static_cast<int>(args[7]));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t nb = (nseg + kThreads - 1) / kThreads;
   if (nb > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(nb));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t* lab = static_cast<const int64_t*>(labels);
   switch (dtype) {
     case 0:
       scan_kernel<float><<<grid, kThreads, 0, st>>>(
@@ -189,42 +447,39 @@ extern "C" int segment_sum_scan(const void* data, const void* labels,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_sorted(const void* data, const void* order, const void* sorted,
-                  const void* offsets, void* first, void* last, void* out,
-                  int64_t L, int64_t nseg, cudaStream_t st) {
-  const int64_t tiles = (L + kSortedTile - 1) / kSortedTile;
-  if (tiles > 0)
-    tile_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
-        static_cast<const T*>(data), static_cast<const int64_t*>(order),
-        static_cast<const int64_t*>(sorted), L, static_cast<T*>(out),
-        static_cast<T*>(first), static_cast<T*>(last));
-  combine_kernel<T><<<blocks_for(nseg, kThreads, 132 * 8), kThreads, 0, st>>>(
-      static_cast<const int64_t*>(offsets), static_cast<const T*>(first),
-      static_cast<const T*>(last), static_cast<T*>(out), nseg);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ``first`` and ``last`` hold one value per tile of 2048 sorted positions.
-extern "C" int segment_sum_sorted(const void* data, const void* order,
-                                  const void* sorted, const void* offsets,
-                                  void* first, void* last, void* out,
-                                  int64_t L, int64_t nseg, int dtype,
-                                  void* stream, int device) {
+// segment_sum_plan: a sum over a plan, {a, b, split, order, offsets, mid,
+// tiles, ntiles, partials, counts, out, nseg, pair, dtype, stream,
+// device}.  Single (pair = 0): out[s] = sum of a over segment s, split =
+// L, mid = 0.  Pair (pair = 1): positions below split index a, the rest b
+// at position - split, and out[s] = (a's sum) + (b's sum).  tiles holds
+// ntiles descriptors.
+extern "C" int segment_sum_plan(const int64_t* args) {
+  const void* a = reinterpret_cast<const void*>(args[0]);
+  const void* b = reinterpret_cast<const void*>(args[1]);
+  const int split = static_cast<int>(args[2]);
+  const Plan p{reinterpret_cast<const int32_t*>(args[3]),
+               reinterpret_cast<const int32_t*>(args[4]),
+               reinterpret_cast<const int32_t*>(args[5]),
+               reinterpret_cast<const int32_t*>(args[6]),
+               reinterpret_cast<void*>(args[8]),
+               reinterpret_cast<int32_t*>(args[9])};
+  const int ntiles = static_cast<int>(args[7]);
+  void* out = reinterpret_cast<void*>(args[10]);
+  const int nseg = static_cast<int>(args[11]);
+  const bool pair = args[12] != 0;
+  const int dtype = static_cast<int>(args[13]);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(args[14]);
   if (nseg <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = cudaSetDevice(static_cast<int>(args[15]));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_sorted<float>(data, order, sorted, offsets, first, last,
-                                  out, L, nseg, st);
+      return launch_plan<float>(a, b, split, p, ntiles, out, nseg, pair, st);
     case 1:
-      return launch_sorted<double>(data, order, sorted, offsets, first, last,
-                                   out, L, nseg, st);
+      return launch_plan<double>(a, b, split, p, ntiles, out, nseg, pair, st);
     case 2:
-      return launch_sorted<long long>(data, order, sorted, offsets, first,
-                                      last, out, L, nseg, st);
+      return launch_plan<long long>(a, b, split, p, ntiles, out, nseg, pair,
+                                    st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -34,6 +34,7 @@ from otamg_torch.device import fetch
 from otamg_torch.krylov.pcg import pcg
 from otamg_torch.opt.newton import NewtonSolveResult, NewtonSolver
 from otamg_torch.ot import operators as op
+from otamg_torch.sparse.segment import segment_plan
 
 
 def _transform(S, tvec, bk1, tk, rhs, p, q):
@@ -190,7 +191,10 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
     ghi = bk1 * qp2 + (kdiag + _a0diag_hi(S, p, q)) / tk
     p2, q2 = p * p, q * q
     nsp_f = nsp.to(hi)
-    qsum = segment_sum(qp2 * nsp_f, labels, N)
+    # The component labels are fixed for the Newton solve: one plan
+    # serves every sum of the refinement rounds.
+    plan = segment_plan(labels, N)
+    qsum = segment_sum(qp2 * nsp_f, labels, N, plan)
     den = bk1 * qsum
     safe_den = torch.where(den > 0, den, 1.0)
     zeros_lo = torch.zeros(N, dtype=lo, device=S.device)
@@ -202,7 +206,7 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
         return ghi * v - torch.cat([ev2, ev1]) / tk
 
     def deflate(w):
-        mean = segment_sum(qp2 * w * nsp_f, labels, N)
+        mean = segment_sum(qp2 * w * nsp_f, labels, N, plan)
         mean = torch.where(qsum > 0,
                            mean / torch.where(qsum > 0, qsum, 1.0), 0.0)
         return w - torch.where(nsp, mean[labels], 0.0) * nsp_f
@@ -211,14 +215,14 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
         f = q0 * rhs
         nf = torch.linalg.vector_norm(f)
         safe_nf = torch.where(nf > 0, nf, 1.0)
-        segf = segment_sum(f * nsp_f, labels, N)
+        segf = segment_sum(f * nsp_f, labels, N, plan)
 
         def residual(w):
             """``(wd, a, r)``: ``w`` deflated, its kernel coordinates
             ``a(wd)`` per node, and ``r = f - bk1 Q Y a - Ae wd``; no
             intermediate grows with ``a`` as ``bk1 -> 0``."""
             wd = deflate(w)
-            segw = segment_sum(qp2 * wd * nsp_f, labels, N)
+            segw = segment_sum(qp2 * wd * nsp_f, labels, N, plan)
             a = torch.where(den > 0, (segf - bk1 * segw) / safe_den, 0.0)
             a = torch.where(nsp, a[labels], 0.0)
             return wd, a, f - bk1 * qp2 * a * nsp_f - ae_hi(wd)
@@ -279,6 +283,7 @@ def make_aug_pcg_solver(p: torch.Tensor, q: torch.Tensor,
         N = g.shape[0]
         labels, _, ncomp, _ = _component_info(E, kdiag)
         roots = labels == torch.arange(N, device=labels.device)
+        plan = segment_plan(labels, N)  # every PCG iteration's sum
         qk = bk1 * torch.cat([q * q, p * p]) + kdiag / tk  # bk1 Q + K/tk
         inv_tk = 1.0 / tk
 
@@ -291,14 +296,14 @@ def make_aug_pcg_solver(p: torch.Tensor, q: torch.Tensor,
         def aug_mv(x):
             U, u = x[:N], x[N:]
             Yu = U[labels]
-            top = segment_sum(qk * (Yu + u), labels, N)
+            top = segment_sum(qk * (Yu + u), labels, N, plan)
             top = torch.where(roots, top, U)
             return torch.cat([top, qk * Yu + ae_mv(u)])
 
-        diag_aug = torch.cat([torch.where(roots, segment_sum(qk, labels, N),
-                                          1.0), g])
-        aug_f = torch.cat([torch.where(roots, segment_sum(f, labels, N),
-                                       0.0), f])
+        diag_aug = torch.cat([torch.where(
+            roots, segment_sum(qk, labels, N, plan), 1.0), g])
+        aug_f = torch.cat([torch.where(
+            roots, segment_sum(f, labels, N, plan), 0.0), f])
         r = pcg(aug_mv, aug_f, lambda v: v / diag_aug,
                 retol=opts.retol, maxit=opts.maxit)
         U, u = r.x[:N], r.x[N:]

@@ -18,6 +18,7 @@ from otamg_torch.amg.hierarchy import BipartiteLevel, DenseLevel
 from otamg_torch.device import resolve
 from otamg_torch.ot.problems import Class1Problem, Class2Problem
 from otamg_torch.sparse.containers import CSR
+from otamg_torch.sparse.segment import segment_plan
 
 def _tensor(a, dev, name: str = "") -> torch.Tensor:
     a = np.asarray(a)
@@ -50,21 +51,28 @@ def csr(indptr, ell_cols, ell_vals, shape, device=None) -> CSR:
                _tensor(ell_vals, dev))
 
 
-def _level(cls, fields: Mapping, dev):
-    return cls(**{f: _tensor(fields[f], dev, f) for f in cls._fields})
+def _level(cls, fields: Mapping, dev, nseg: int, split=None):
+    """The level from the JAX package's fields; its segment plan, which
+    has no JAX counterpart, made from its labels."""
+    kw = {f: _tensor(fields[f], dev, f) for f in cls._fields if f != "plan"}
+    return cls(**kw, plan=segment_plan(kw["labels"], nseg, split))
 
 
 def bipartite_level(fields: Mapping, device=None) -> BipartiteLevel:
     """A :class:`BipartiteLevel` from its fields (``lv._asdict()``)."""
-    return _level(BipartiteLevel, fields, resolve(device))
+    return _level(BipartiteLevel, fields, resolve(device),
+                  np.asarray(fields["g"]).shape[0],
+                  np.asarray(fields["W"]).shape[0])
 
 
-def dense_level(fields: Mapping, device=None) -> DenseLevel:
-    """A :class:`DenseLevel` from its fields (``lv._asdict()``)."""
-    return _level(DenseLevel, fields, resolve(device))
+def dense_level(fields: Mapping, nseg: int, device=None) -> DenseLevel:
+    """A :class:`DenseLevel` from its fields (``lv._asdict()``), its plan
+    into ``nseg`` slots (the fine level's node count)."""
+    return _level(DenseLevel, fields, resolve(device), nseg)
 
 
 def hierarchy(lv1: Mapping, dense: Sequence[Mapping], device=None):
     """``(BipartiteLevel, (DenseLevel, ...))`` from field mappings."""
-    return (bipartite_level(lv1, device),
-            tuple(dense_level(d, device) for d in dense))
+    head = bipartite_level(lv1, device)
+    nseg = head.g.shape[0]
+    return head, tuple(dense_level(d, nseg, device) for d in dense)

@@ -26,7 +26,8 @@ from otamg_torch.device import fetch
 from otamg_torch.hybrid import solver as thyb
 from otamg_torch.opt import apd, apd2
 from otamg_torch.ot import random_class1, random_class2
-from otamg_torch.sparse.segment import segment_sum, segment_sum_plain
+from otamg_torch.sparse.segment import (segment_plan, segment_sum,
+                                        segment_sum_plain)
 
 
 def class1_opts(cfg=tcfg, **kw):
@@ -386,16 +387,19 @@ def card():
 
 @pytest.mark.cuda
 def test_segment_sum_kernel(card):
-    """Both variants against the plain version on the same inputs: the
-    scan variant bit for bit (the CPU's order), the sorted variant to
-    1e-12; two calls equal each other."""
+    """The scan kernel and the plan kernel against the plain version on
+    the same inputs: bit for bit where the call is exact (the CPU's
+    order), to 1e-12 where it is tiled; two calls equal each other, and
+    the no-plan call equals the call over a plan."""
     g = torch.Generator(device=card).manual_seed(0)
     for L, nseg in ((700, 1000), (1 << 16, 1 << 14)):
         labels = torch.randint(0, nseg // 3, (L,), generator=g, device=card)
         data = torch.randn(L, generator=g, device=card, dtype=torch.float64)
+        plan = segment_plan(labels, nseg)
         got = segment_sum(data, labels, nseg)
         want = segment_sum_plain(data.cpu(), labels.cpu(), nseg)
         assert torch.equal(got, segment_sum(data, labels, nseg))
+        assert torch.equal(got, segment_sum(data, labels, nseg, plan))
         if nseg * L <= (1 << 24):
             assert torch.equal(got.cpu(), want)
         else:
