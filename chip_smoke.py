@@ -27,10 +27,11 @@ Phases, each printing one JSON line with its numbers and seconds:
    (``csrc/mis.cu``) against its plain version on each level's strength
    graph and on a bail-out case, equal splits and rounds;
    ``coarse_eigh`` (``csrc/coarse_eigh.cu``) against
-   ``torch.linalg.eigh`` at n = 8, 64, 99, 123, 128 in f64 and f32, and
-   at 191, 256 and 400, where part or all of its state is in global
-   memory, to stated tolerances; each with ``ms``, ``device_ms``, the bound and the
-   plain version's (and eigh's) time; and the setup itself
+   ``torch.linalg.eigh`` at n = 8, 64, 99, 123, 128 in f64 and f32, at
+   191, 256, 400 and 600, where the matrix is in global memory in f64, and
+   on a clustered matrix at 123 and 400, to stated tolerances; each
+   with ``ms``, ``device_ms``, the bound and the plain version's (and
+   eigh's) time; and the setup itself
    (``setup_solve``) eagerly under ``torch.cuda.set_sync_debug_mode
    ("error")``, then captured and replayed, equal to the eager levels bit
    for bit with no read or sync around the replay, with the eager and
@@ -1048,14 +1049,21 @@ def mis_bound(card, c, rounds):
                                        else "operations")
 
 
+# The card's peak for the eigensolver's f64 and f32 work: 67 TFLOP/s,
+# f64 on the tensor cores (DMMA) and f32 off them (NVIDIA's data sheet).
+_EIGH_PEAK = 67e12
+
+
 def eigh_bound(card, n, dtype):
-    """(bound ms, bound_by): ~9 n^3 flops (symmetric QR with vectors,
-    Golub-Van Loan), A read once, the eigenpairs written once."""
+    """(bound ms, bound_by): the kernel's method needs ~(4/3) n^3 flops
+    to tridiagonalise and 2 n^3 to back-transform (the Sturm counts and
+    the inverse iteration are O(n^2) a round or a vector), at
+    :data:`_EIGH_PEAK`; A read once, the eigenpairs written once."""
     from otamg_torch.diag.roofline import hbm_rate
 
     s = torch.empty((), dtype=dtype).element_size()
     t_bytes = ((2 * n * n + n) * s + 4) / hbm_rate(card)
-    t_ops = 9 * n ** 3 / _PEAK[dtype]
+    t_ops = (10 / 3) * n ** 3 / _EIGH_PEAK
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1118,15 +1126,28 @@ def mis_checks(card, dev, recs):
 EIGH_C = 30
 
 
+def clustered_matrix(n, gen, dev):
+    """``Q diag(lam) Q^T``, ``Q`` orthogonal from a seeded Gaussian:
+    eigenvalues spread over [1, 10], 3.0 six times and 0 four times."""
+    Q, _ = torch.linalg.qr(torch.randn(n, n, generator=gen, device=dev,
+                                       dtype=torch.float64))
+    lam = torch.linspace(1.0, 10.0, n, dtype=torch.float64, device=dev)
+    lam[:4] = 0.0
+    lam[10:16] = 3.0
+    return (Q * lam) @ Q.T
+
+
 def eigh_checks(card, dev, recs):
     """``coarse_eigh`` against ``torch.linalg.eigh`` at n = 8, 64, 99,
     123 and 128, f64 and f32: the coarsest matrices of the first Newton
     solve's hierarchies at 1024^2 (99) and 500^2 (123), random symmetric
     ones at the other sizes.  Random symmetric ones at n = 191 (Class 1
-    8192^2's coarsest capacity), 256 and 400 take the kernel's layouts
-    with the eigenvectors, or everything, in global memory
-    (:func:`otamg_torch.amg.kernels.eigh_layout`); they are timed over
-    fewer calls.  Held, in 1-norms, with ``c = 30``, the
+    8192^2's coarsest capacity), 256, 400 and 600 keep the matrix in the
+    global workspace in f64 (:func:`otamg_torch.amg.kernels.eigh_layout`;
+    600 also takes the back-transformation from global memory),
+    and the clustered matrix (:func:`clustered_matrix`) at n = 123 and
+    400 leaves clusters for the inverse iteration's Gram-Schmidt.  Held,
+    in 1-norms, with ``c = 30``, the
     threshold of LAPACK's own eigensolver tests (``xSYT21``'s ratios
     ``||A V - V diag(lam)|| / (n ulp ||A||)`` and ``||V^T V - I|| / (n
     ulp)``): ``info`` 0; eigenvalues within ``c n eps ||A||``; ``||A V -
@@ -1140,15 +1161,17 @@ def eigh_checks(card, dev, recs):
     from otamg_torch.config import AMGOptions
 
     gen = torch.Generator(device=dev).manual_seed(13)
-    mats = {n: A for rec in recs.values() for n, A in rec.eigh.items()}
-    coarsest = set(mats)
-    for n in (8, 64, 128, 191, 256, 400):
+    mats = [("coarsest level", A) for rec in recs.values()
+            for A in rec.eigh.values()]
+    for n in (8, 64, 128, 191, 256, 400, 600):
         B = torch.randn(n, n, generator=gen, device=dev, dtype=torch.float64)
-        mats[n] = 0.5 * (B + B.T)
+        mats.append(("random symmetric", 0.5 * (B + B.T)))
+    mats += [("clustered", clustered_matrix(n, gen, dev)) for n in (123, 400)]
     rows = {}
-    for n in sorted(mats):
+    for source, A0 in sorted(mats, key=lambda m: (m[1].shape[0], m[0])):
+        n = A0.shape[0]
         for dtype in (torch.float64, torch.float32):
-            A = mats[n].to(dtype).contiguous()
+            A = A0.to(dtype).contiguous()
             lam, V, info = coarse_eigh(A)
             ref_lam, ref_V = torch.linalg.eigh(A)
             eps = torch.finfo(dtype).eps
@@ -1182,13 +1205,12 @@ def eigh_checks(card, dev, recs):
                   and res <= tol and orth <= tol
                   and x_err <= 10 * n * eps * kappa)
             bound_ms, bound_by = eigh_bound(card, n, dtype)
-            reps = REPS if n <= 128 else 1
+            reps = REPS if n <= 128 else 10
             ms = cuda_ms(lambda: coarse_eigh(A), reps)
-            row = dict(n=n, dtype=str(dtype).split(".")[-1],
+            name = str(dtype).split(".")[-1]
+            row = dict(n=n, dtype=name,
                        layout=eigh_layout(n, A.element_size())[0],
-                       source="coarsest level" if n in coarsest
-                       else "random symmetric",
-                       info=int(info), max_abs_err=lam_err,
+                       source=source, info=int(info), max_abs_err=lam_err,
                        lam_tol=tol * nA, residual=res,
                        residual_tol=tol, orthogonality=orth,
                        coarse_solve_rel_err=x_err,
@@ -1202,16 +1224,17 @@ def eigh_checks(card, dev, recs):
                        share_of_bound=bound_ms / ms)
             emit("coarse_eigh", **row)
             if not ok:
-                raise AssertionError(f"coarse_eigh n={n} {dtype} misses its "
-                                     "tolerances")
-            rows[(n, dtype)] = row
+                raise AssertionError(f"coarse_eigh {source} n={n} {dtype} "
+                                     "misses its tolerances")
+            rows[(source, n, dtype)] = row
     return rows
 
 
 def setup_sizes_checked():
     """Every Class-1/2 size this script solves has its coarsest capacity
-    within the eigh kernel's shared memory (``coarse_target`` 128,
-    layout 0 in f64), so every setup of the path runs its fast layout."""
+    within the eigh kernel's shared memory (``coarse_target`` 128;
+    layout 0, the matrix in shared memory, holds f64 up to n = 161), so
+    every setup of the path runs its fast layout."""
     from otamg_torch.amg.hierarchy import capacity_schedule
     from otamg_torch.amg.kernels import eigh_layout
 
@@ -2262,7 +2285,7 @@ def main() -> int:
     main_row = rows[("grid128", torch.float64)]
     seg_row = seg_rows["components1000_L500"]
     mis_row = mis_rows["class1_500_c500"]
-    eigh_row = eigh_rows[(123, torch.float64)]
+    eigh_row = eigh_rows[("coarsest level", 123, torch.float64)]
     print(json.dumps({"kernels": [{
         "name": "ell_spmv", "route": "cuda",
         "source": "otamg_torch/csrc/ell_spmv.cu",

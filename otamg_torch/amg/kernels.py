@@ -8,8 +8,10 @@
   integer count tested against the same f32 thresholds, so the kernel
   gives the plain loop's split bit for bit.
 * :func:`coarse_eigh` — the eigendecomposition of the coarsest dense
-  level, a one-block Jacobi eigensolver (``otamg_torch/csrc/
-  coarse_eigh.cu``) whose ``info`` stays on the card, where
+  level in one launch of one block (``otamg_torch/csrc/coarse_eigh.cu``:
+  Householder tridiagonalisation, multisection on Sturm counts, inverse
+  iteration, back-transformation; ``tests/eigh_steps.py`` is the same
+  method in torch ops) whose ``info`` stays on the card, where
   ``torch.linalg.eigh`` checks its ``info`` with a host sync
   (``otamg/amg/hierarchy.py``'s ``jnp.linalg.eigh`` runs inside the
   jit).  Its eigenpairs are not ``torch.linalg.eigh``'s bits: they agree
@@ -176,34 +178,33 @@ def coarse_eigh_plain(A: torch.Tensor):
 def eigh_layout(n: int, itemsize: int) -> tuple:
     """Where ``csrc/coarse_eigh.cu`` keeps its state for an ``n x n``
     matrix of ``itemsize``-byte values: ``(layout, shared bytes,
-    workspace values)``.  Shared memory always holds a rotation (``c``,
-    ``s``, ``t``) and a pair a step and the reduction scratch; layout 0
-    adds the lower triangle and the eigenvectors (f64 up to n = 138, f32
-    up to 195), layout 1 the triangle alone, with the eigenvectors in a
-    global workspace (f64 up to 238, f32 up to 337), layout 2 neither
-    (f64 up to 14,496, f32 up to 23,218)."""
-    P = (n + n % 2) // 2
-    small = itemsize * (3 * P + 64) + 8 * P
-    tri, vec = n * (n + 1) // 2, n * n
-    for layout, (shared, ws) in enumerate(((tri + vec, 0), (tri, vec),
-                                           (0, tri + vec))):
-        if small + itemsize * shared <= SMEM_MAX:
-            return layout, small + itemsize * shared, ws
+    workspace values)``.  Shared memory always holds T, the eigenvalues
+    and the shifts, the tridiagonalisation's products and partial sums
+    (15 n values) and five ints a row; layout 0 adds the matrix's lower
+    triangle in rows of ``n | 1`` values (f64 up to n = 161, f32 up to
+    231), layout 1 keeps it in the global workspace (f64 up to n = 1,659,
+    f32 up to 2,904).  The workspace holds the inverse iteration's
+    factors and iterates (6 n^2 values and n^2 bytes), and the matrix in
+    layout 1."""
+    small = itemsize * 15 * n + 4 * (5 * n + 16)
+    ws = 6 * n * n + -(-n * n // itemsize)
+    mat = n * (n | 1)
+    if small + itemsize * mat <= SMEM_MAX:
+        return 0, small + itemsize * mat, ws
+    if small <= SMEM_MAX:
+        return 1, small, ws + mat
     raise ValueError(f"coarse_eigh: n = {n} exceeds one block's shared "
                      "memory")
-
-
-MAX_SWEEPS = 30
 
 
 def coarse_eigh(A: torch.Tensor):
     """Eigenvalues (ascending), eigenvectors (columns) and ``info`` of a
     symmetric f32 or f64 matrix: :func:`coarse_eigh_plain` on the CPU,
-    one launch of ``csrc/coarse_eigh.cu`` on a card (cyclic Jacobi in
-    parallel order, with what shared memory does not hold in a workspace,
-    see :func:`eigh_layout`; ``info`` 0, or 1 when the off-diagonal norm
-    is still above ``eps ||A||_F`` after :data:`MAX_SWEEPS` sweeps).
-    Only the lower triangle is read."""
+    one launch of ``csrc/coarse_eigh.cu`` on a card (the method of
+    ``tests/eigh_steps.py``, with the matrix in shared memory or
+    the workspace, see :func:`eigh_layout`; ``info`` 0, or 1 when a
+    multisection or an inverse iteration did not converge).  Only the
+    lower triangle is read."""
     if not A.is_cuda:
         return coarse_eigh_plain(A)
     n = A.shape[0]
@@ -217,10 +218,9 @@ def coarse_eigh(A: torch.Tensor):
     V = A.new_empty(n, n)
     info = torch.empty((), dtype=torch.int32, device=A.device)
     ws = A.new_empty(nws)
-    _launch("coarse_eigh", "=12q", A.data_ptr(), lam.data_ptr(),
-            V.data_ptr(), info.data_ptr(), n, _CODE[A.dtype], MAX_SWEEPS,
-            smem, _bound("coarse_eigh")[2](dev), dev,
-            ws.data_ptr() if nws else 0, layout)
+    _launch("coarse_eigh", "=11q", A.data_ptr(), lam.data_ptr(),
+            V.data_ptr(), info.data_ptr(), n, _CODE[A.dtype], smem,
+            _bound("coarse_eigh")[2](dev), dev, ws.data_ptr(), layout)
     coarse_eigh.launches += 1
     return lam, V, info
 

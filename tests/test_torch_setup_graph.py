@@ -84,14 +84,26 @@ def test_setup_stats_of_the_cases(case):
 
 def test_setup_equals_read_driven(case):
     """Every leaf of every level equals the port's previous setup (one
-    host read per MIS round and per level's defect) bit for bit."""
+    host read per MIS round and per level's defect): every shape and
+    every integer and boolean leaf exactly, every float leaf to 4 ulps of
+    its largest magnitude.  The fixture holds the float products of the
+    CPU that wrote it (its BLAS's order of summation), and the
+    read-driven setup is gone, so it cannot be rebuilt here; bit-for-bit
+    equality on one machine is held where both sides run on it
+    (``test_setup_reads_nothing``, and ``test_setup_capture_equals_eager``
+    on a card)."""
     name, _, _, (lv1, dense), _ = case
     want = np.load(READ_DRIVEN)
     got = leaves(lv1, dense)
     assert int(want[f"{name}_count"]) == len(got)
     for i, t in enumerate(got):
         w = want[f"{name}_{i}"]
-        assert t.shape == w.shape and np.array_equal(t.numpy(), w), (name, i)
+        assert t.shape == w.shape and t.numpy().dtype == w.dtype, (name, i)
+        if np.issubdtype(w.dtype, np.floating) and w.size:
+            tol = 4 * np.spacing(np.abs(w).max())
+            assert np.abs(t.numpy() - w).max() <= tol, (name, i)
+        else:
+            assert np.array_equal(t.numpy(), w), (name, i)
 
 
 def test_setup_equals_jax(case):
@@ -224,23 +236,28 @@ def test_mis_rounds_plain_counts_rounds():
 
 
 @pytest.mark.parametrize("n, itemsize, layout", [
-    (128, 8, 0), (138, 8, 0), (139, 8, 1), (238, 8, 1), (239, 8, 2),
-    (14_496, 8, 2), (195, 4, 0), (196, 4, 1), (337, 4, 1), (338, 4, 2)])
+    (1, 8, 0), (128, 8, 0), (161, 8, 0), (162, 8, 1), (400, 8, 1),
+    (1_659, 8, 1), (123, 4, 0), (231, 4, 0), (232, 4, 1), (2_904, 4, 1)])
 def test_eigh_layout(n, itemsize, layout):
-    """The eigh kernel keeps what one block's shared memory holds there
-    (the triangle and V, then the triangle) and the rest in a global
-    workspace of the size that layout needs."""
+    """The eigh kernel keeps the matrix's lower triangle (rows of ``n |
+    1`` values) in one block's shared memory where it fits beside T and
+    the method's vectors, else in the global workspace, which always
+    holds the inverse iteration's factors and iterates (6 n^2 values and
+    n^2 bytes)."""
     got, smem, ws = tk.eigh_layout(n, itemsize)
-    tri, vec = n * (n + 1) // 2, n * n
     assert got == layout and smem <= tk.SMEM_MAX
-    assert ws == (0, vec, tri + vec)[layout]
+    assert ws == (6 * n * n + -(-n * n // itemsize)
+                  + (n * (n | 1) if layout else 0))
 
 
 def test_eigh_layout_limit():
-    """Past layout 2's reach (the rotations and pairs of one step in
-    shared memory) the kernel refuses the matrix."""
+    """Past layout 1's reach (T, the eigenvalues, the shifts and the
+    tridiagonalisation's partial sums in shared memory) the kernel
+    refuses the matrix."""
     with pytest.raises(ValueError, match="shared memory"):
-        tk.eigh_layout(14_497, 8)
+        tk.eigh_layout(1_660, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.eigh_layout(2_905, 4)
 
 
 def test_setup_stats_keep_a_copy():
@@ -281,19 +298,38 @@ def test_mis_kernel_equals_plain(card):
             assert torch.equal(a.cpu(), b)
 
 
+def clustered(n, dtype, device=None, seed=0):
+    """``Q diag(lam) Q^T`` with a random orthogonal ``Q``: eigenvalues
+    spread over [1, 10], one of them six times (3.0) and a zero four
+    times."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    lam = np.linspace(1.0, 10.0, n)
+    lam[:4] = 0.0
+    lam[10:16] = 3.0
+    return torch.as_tensor((Q * lam) @ Q.T, dtype=dtype, device=device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_coarse_eigh_kernel(card, dtype):
-    """The Jacobi kernel against ``torch.linalg.eigh`` with
-    ``chip_smoke.py``'s tolerances (1-norms, ``c = 30``, LAPACK's test
-    threshold): eigenvalues to ``c n eps ||A||``, ``||A V - V
-    diag(lam)|| <= c n eps ||A||``, ``||V^T V - I|| <= c n eps``."""
+    """The kernel against ``torch.linalg.eigh`` with ``chip_smoke.py``'s
+    tolerances (1-norms, ``c = 30``, LAPACK's test threshold):
+    eigenvalues to ``c n eps ||A||``, ``||A V - V diag(lam)|| <= c n eps
+    ||A||``, ``||V^T V - I|| <= c n eps``, on random symmetric matrices
+    and on the clustered one (a six-fold eigenvalue and a four-fold
+    zero)."""
     eps = torch.finfo(dtype).eps
-    # 191, 256 and 400 keep V, or everything, in global memory.
-    for n in (8, 64, 99, 123, 128, 191, 256, 400):
+    cases = []
+    # 191 on keep the matrix in global memory in f64; past 512 the
+    # eigenvectors are back-transformed there too.
+    for n in (8, 64, 99, 123, 128, 191, 256, 400, 600):
         g = torch.Generator(device=card).manual_seed(n)
         B = torch.randn(n, n, generator=g, device=card, dtype=torch.float64)
-        A = (0.5 * (B + B.T)).to(dtype)
+        cases.append((0.5 * (B + B.T)).to(dtype))
+    cases += [clustered(n, dtype, card) for n in (64, 123, 400)]
+    for A in cases:
+        n = A.shape[0]
         lam, V, info = tk.coarse_eigh(A)
         want = torch.linalg.eigh(A)[0]
         A64, V64 = A.double(), V.double()
