@@ -25,7 +25,11 @@ Phases, each printing one JSON line with its numbers and seconds:
    solves record their inputs): every coarsest capacity of the sizes
    solved here within the eigh kernel's shared memory; ``mis_rounds``
    (``csrc/mis.cu``) against its plain version on each level's strength
-   graph and on a bail-out case, equal splits and rounds;
+   graph, on a bail-out case, on synthetic level-1 graphs of 100, 2,048
+   and 4,096 nodes (the bits in the cluster's shared memory) and 6,144
+   (the bits in a global workspace) and on a deep level of 128 nodes,
+   equal splits and rounds, each row with its layout, blocks, active
+   nodes and strong neighbours a row;
    ``coarse_eigh`` (``csrc/coarse_eigh.cu``) against
    ``torch.linalg.eigh`` at n = 8, 64, 99, 123, 128 in f64 and f32, at
    191, 256, 400 and 600, where the matrix is in global memory in f64, and
@@ -1032,19 +1036,22 @@ class Recorder:
             setattr(mod, attr, fn)
 
 
-# Comparisons a round: the local max and the C-neighbour pass each test
-# every entry of As once.  The card's rate for them is its fp32
-# instruction rate, half the 67 TFLOP/s that counts an FMA as two.
-_CMP_RATE = _PEAK[torch.float32] / 2
+# The method's operations a round: the local max and the C-neighbour
+# pass each AND every 32-bit word of As's bits with a mask word once.
+# The card's rate for 32-bit logic is 64 lanes an SM a clock (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0), half its 128 fp32 lanes, whose FMAs count twice in
+# the 67 TFLOP/s: a quarter of that figure.
+_WORD_RATE = _PEAK[torch.float32] / 4
 
 
 def mis_bound(card, c, rounds):
     """(bound ms, bound_by): As, active and deg read once, three flags
-    written; 2 c^2 comparisons a round of this run."""
+    written; 2 c ceil(c/32) word operations a round of this run."""
     from otamg_torch.diag.roofline import hbm_rate
 
     t_bytes = (c * c + 5 * c + 3 * c + 8) / hbm_rate(card)
-    t_ops = 2 * c * c * rounds / _CMP_RATE
+    t_ops = 2 * c * -(-c // 32) * rounds / _WORD_RATE
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1068,15 +1075,75 @@ def eigh_bound(card, n, dtype):
                                        else "operations")
 
 
+# Synthetic level-1 graphs (``level1_graph``): one of the size of the
+# CLI's small problems' levels (12 of the cluster's 16 blocks own no
+# row), two whose first coarsening a 2048^2 and a 4096^2 plan would give
+# (the bits in the cluster's shared memory) and one past them (the bits
+# in the global workspace); and a deep level of 128 nodes (``deep_graph``).
+MIS_SYNTHETIC = (100, 2048, 4096, 6144)
+MIS_DEEP = 128
+MIS_DENSITY = 0.2
+
+
+def mis_args(As, active, tie):
+    """``(As, active, deg, Ncnt, N0)`` as ``mis_split`` hands them to
+    ``mis_rounds``, with the degrees' ties ``tie``."""
+    f32 = torch.float32
+    Ncnt = active.sum().to(f32)
+    N0 = torch.clamp_max(torch.floor(torch.sqrt(Ncnt)) + 1, 25.0)
+    deg0 = torch.where(active, As.sum(dim=1).to(f32), 0.0)
+    return As, active, torch.where(deg0 > 0, deg0 + tie, 0.0), Ncnt, N0
+
+
+def level1_graph(c, dev):
+    """:func:`mis_args` of a graph shaped like a plan's first
+    coarsening: every node active, each pair strongly connected with
+    probability :data:`MIS_DENSITY` (a generator seeded with ``c``;
+    symmetric, no diagonal), the degrees' ties ``mis_draws(PRNGKey(c))``."""
+    from otamg_torch import random as jr
+
+    gen = torch.Generator(device=dev).manual_seed(c)
+    up = torch.triu(torch.rand(c, c, generator=gen, device=dev)
+                    < MIS_DENSITY, 1)
+    tie = jr.to_device(jr.mis_draws(jr.PRNGKey(c), c), dev)[0]
+    return mis_args(up | up.T, torch.ones(c, dtype=torch.bool, device=dev),
+                    tie)
+
+
+def deep_graph(c, dev):
+    """:func:`mis_args` of a graph shaped like a plan's deeper levels:
+    about 15% of the nodes active (three at least), each tied to one or
+    two other active nodes (a generator seeded with ``c``), the ties
+    ``mis_draws(PRNGKey(c))``."""
+    from otamg_torch import random as jr
+
+    gen = torch.Generator().manual_seed(c)
+    active = torch.rand(c, generator=gen) < 0.15
+    active[:3] = True
+    idx = active.nonzero().flatten()
+    As = torch.zeros(c, c, dtype=torch.bool)
+    for i in idx.tolist():
+        others = idx[idx != i]
+        k = 1 + int(torch.randint(2, (), generator=gen))
+        j = others[torch.randperm(len(others), generator=gen)[:k]]
+        As[i, j] = As[j, i] = True
+    tie = jr.to_device(jr.mis_draws(jr.PRNGKey(c), c), dev)[0]
+    return mis_args(As.to(dev), active.to(dev), tie)
+
+
 def mis_checks(card, dev, recs):
     """``mis_rounds`` against ``mis_rounds_plain`` on the card, on the
     strength graphs of the first Newton solve's hierarchies (``recs``:
-    size -> Recorder) and on a graph whose MIS bails out (the whole
-    split, bail-out selection included, against the CPU's): equal
-    splits and rounds; times at each shape."""
+    size -> Recorder), on a graph whose MIS bails out (the whole
+    split, bail-out selection included, against the CPU's) and on the
+    synthetic graphs of :data:`MIS_SYNTHETIC` and :data:`MIS_DEEP`: equal
+    splits and rounds;
+    times, layout, active nodes and strong neighbours a row at each
+    shape."""
     from otamg_torch import random as jr
     from otamg_torch.amg.graph import mis_split
-    from otamg_torch.amg.kernels import mis_rounds, mis_rounds_plain
+    from otamg_torch.amg.kernels import (mis_layout, mis_rounds,
+                                         mis_rounds_plain)
 
     cases = [(f"class1_{size}_c{c}", args) for size, rec in recs.items()
              for c, args in sorted(rec.mis.items(), reverse=True)]
@@ -1091,12 +1158,10 @@ def mis_checks(card, dev, recs):
     bail_ok = all(torch.equal(a.cpu(), b) for a, b in
                   zip((*got[0], got[1], got[2]),
                       (*want[0], want[1], want[2])))
-    f32 = torch.float32
-    deg0 = As.sum(dim=1).to(f32)
-    Ncnt = active.sum().to(f32)
-    cases.append(("bail_c500", (
-        As, active, torch.where(deg0 > 0, deg0 + draws[0], 0.0), Ncnt,
-        torch.clamp_max(torch.floor(torch.sqrt(Ncnt)) + 1, 25.0))))
+    cases.append(("bail_c500", mis_args(As, active, draws[0])))
+    cases += [(f"synthetic_c{c}", level1_graph(c, dev))
+              for c in MIS_SYNTHETIC]
+    cases.append((f"deep_c{MIS_DEEP}", deep_graph(MIS_DEEP, dev)))
     rows = {}
     for name, args in cases:
         k = mis_rounds(*args)
@@ -1104,9 +1169,13 @@ def mis_checks(card, dev, recs):
         torch.cuda.synchronize()
         equal = all(torch.equal(a, b) for a, b in zip(k, p))
         c, rounds = args[0].shape[0], int(k[3])
+        layout, blocks = mis_layout(c)[:2]
         bound_ms, bound_by = mis_bound(card, c, rounds)
         ms = cuda_ms(lambda: mis_rounds(*args))
-        row = dict(shape=name, c=c, rounds=rounds, equal_to_plain=equal,
+        row = dict(shape=name, c=c, rounds=rounds, layout=layout,
+                   blocks=blocks, active=int(args[1].sum()),
+                   strong_per_row=float(args[0].sum()) / c,
+                   equal_to_plain=equal,
                    max_abs_err=0.0 if equal else 1.0, ms=ms,
                    device_ms=graph_ms(lambda: mis_rounds(*args)),
                    plain_ms=cuda_ms(lambda: mis_rounds_plain(*args), 10),

@@ -4,9 +4,12 @@
   splitting (:func:`otamg_torch.amg.graph.mis_dense`) until its go-test
   fails, in one launch of ``otamg_torch/csrc/mis.cu`` with no host read:
   the Hopper form of the ``lax.while_loop`` of
-  ``otamg/amg/graph.py::mis_dense``.  Every step is a comparison or an
-  integer count tested against the same f32 thresholds, so the kernel
-  gives the plain loop's split bit for bit.
+  ``otamg/amg/graph.py::mis_dense``, with ``As`` packed once into bits
+  in the shared memory of a thread-block cluster or in a global
+  workspace (:func:`mis_layout`; ``tests/mis_steps.py`` is the same
+  method in torch ops).  Every step is a comparison or an integer count
+  tested against the same f32 thresholds, so the kernel gives the plain
+  loop's split bit for bit.
 * :func:`coarse_eigh` — the eigendecomposition of the coarsest dense
   level in one launch of one block (``otamg_torch/csrc/coarse_eigh.cu``:
   Householder tridiagonalisation, multisection on Sturm counts, inverse
@@ -117,18 +120,44 @@ def mis_rounds_plain(As, active, deg, Ncnt, N0, max_rounds: int = 64):
                                        device=As.device)
 
 
-def mis_smem_bytes(c: int) -> int:
-    """``csrc/mis.cu``'s dynamic shared memory: the f32 degrees and five
-    byte flags a node."""
-    return 9 * c
+# csrc/mis.cu's cluster size, the same at every c (PERF.md gives the
+# times on an H100 of one block and of smaller clusters); the words of shared memory its state
+# takes besides the bit panel of ceil(c/32) words a row: the degrees (32 a
+# word of nodes), the masks C, S, U, F and A, two counts a block and a
+# reduction's scratch.
+MIS_BLOCKS = 16
+_MIS_STATE = (37, 2 * MIS_BLOCKS + 32 + 2)
+
+
+def mis_layout(c: int) -> tuple:
+    """Where ``csrc/mis.cu`` keeps the bits of ``As`` for ``c`` nodes:
+    ``(layout, blocks, rows a block, shared bytes, workspace words)``.
+    One cluster of :data:`MIS_BLOCKS` blocks; each packs its panel of
+    ``rows`` rows (a multiple of 32; the last blocks may have fewer or
+    none) into ``ceil(c/32)`` words a row.  Layout 0 keeps each panel in
+    its block's shared memory (up to c = 5,120), layout 1 the panels in
+    a global workspace of ``blocks * rows * ceil(c/32)`` 32-bit words (up
+    to c = 50,176, where the state fills a block's shared memory).  Only
+    the rows that are undecided or selectable at the start are
+    packed."""
+    W = -(-c // 32)
+    rows = 32 * -(-c // (32 * MIS_BLOCKS))
+    state = 4 * (_MIS_STATE[0] * W + _MIS_STATE[1])
+    if state + 4 * rows * W <= SMEM_MAX:
+        return 0, MIS_BLOCKS, rows, state + 4 * rows * W, 0
+    if state <= SMEM_MAX:
+        return 1, MIS_BLOCKS, rows, state, MIS_BLOCKS * rows * W
+    raise ValueError(f"mis_rounds: {c} nodes exceed a block's shared "
+                     "memory")
 
 
 def mis_rounds(As, active, deg, Ncnt, N0, max_rounds: int = 64):
     """:func:`mis_rounds_plain`'s ``(isC, isF, isU, rounds)``; on a card
     one launch of ``csrc/mis.cu`` that tests the go-condition on the
-    device after every round.  ``As`` is the ``(c, c)``
-    bool strong-connection matrix, ``active`` ``(c,)`` bool, ``deg``
-    ``(c,)`` f32, ``Ncnt`` and ``N0`` 0-d f32; ``rounds`` is a 0-d int32
+    device after every round, in the layout :func:`mis_layout` gives.
+    ``As`` is the ``(c, c)`` bool
+    strong-connection matrix, ``active`` ``(c,)`` bool, ``deg`` ``(c,)``
+    f32, ``Ncnt`` and ``N0`` 0-d f32; ``rounds`` is a 0-d int32
     tensor."""
     if not As.is_cuda:
         return mis_rounds_plain(As, active, deg, Ncnt, N0, max_rounds)
@@ -145,18 +174,18 @@ def mis_rounds(As, active, deg, Ncnt, N0, max_rounds: int = 64):
         raise ValueError("mis_rounds: As (c, c) bool, active (c,) bool, "
                          "deg (c,) f32, Ncnt and N0 0-d f32, contiguous, "
                          "on one card")
-    if mis_smem_bytes(c) > SMEM_MAX:
-        raise ValueError(f"mis_rounds: {c} nodes exceed one block's shared "
-                         "memory")
+    layout, nb, rows, smem, nws = mis_layout(c)
     isC = torch.empty(c, dtype=torch.bool, device=As.device)
     isF, isU = torch.empty_like(isC), torch.empty_like(isC)
     rounds = torch.empty((), dtype=torch.int32, device=As.device)
     if not c:
         return isC, isF, isU, rounds.zero_()
-    _launch("mis", "=13q", As.data_ptr(), active.data_ptr(), deg.data_ptr(),
+    ws = torch.empty(nws, dtype=torch.int32, device=As.device) if nws else None
+    _launch("mis", "=18q", As.data_ptr(), active.data_ptr(), deg.data_ptr(),
             Ncnt.data_ptr(), N0.data_ptr(), isC.data_ptr(), isF.data_ptr(),
             isU.data_ptr(), rounds.data_ptr(), c, max_rounds,
-            _bound("mis")[2](dev), dev)
+            _bound("mis")[2](dev), dev, 0 if ws is None else ws.data_ptr(),
+            layout, nb, rows, smem)
     mis_rounds.launches += 1
     return isC, isF, isU, rounds
 

@@ -286,11 +286,32 @@ def card():
 
 @pytest.mark.cuda
 def test_mis_kernel_equals_plain(card):
-    """One ``mis`` launch gives the plain loop's split and rounds."""
-    for density in (0.005, 0.08, 0.2):
+    """One ``mis`` launch gives the plain loop's split and rounds in
+    each layout of ``mis_layout``: the bits in the cluster's shared
+    memory (the whole ``mis_split`` at 100 nodes, where 12 of the 16
+    blocks own no row, and at 300; a level-1 graph of 2,048) and in the
+    global workspace (6,144)."""
+    for c, layout in ((2048, 0), (6144, 1)):
+        assert tk.mis_layout(c)[0] == layout
+        rng = np.random.default_rng(c)
+        up = np.triu(rng.random((c, c), dtype=np.float32) < 0.2, 1)
+        As = torch.as_tensor(up | up.T, device=card)
+        active = torch.ones(c, dtype=torch.bool, device=card)
+        Ncnt = torch.tensor(float(c), device=card)
+        N0 = torch.clamp_max(torch.floor(torch.sqrt(Ncnt)) + 1, 25.0)
+        deg0 = As.sum(dim=1).to(torch.float32)
+        tie = tr.to_device(tr.mis_draws(tr.PRNGKey(c), c), card)[0]
+        args = (As, active, torch.where(deg0 > 0, deg0 + tie, 0.0), Ncnt,
+                N0)
+        got, want = tk.mis_rounds(*args), tk.mis_rounds_plain(*args)
+        assert int(want[3]) > 0
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for N, density in ((100, 0.08), (300, 0.005), (300, 0.08),
+                       (300, 0.2)):
+        assert tk.mis_layout(N)[0] == 0
         As, active = (torch.as_tensor(a, device=card)
-                      for a in strength_graph(density, N=300))
-        draws = tr.to_device(tr.mis_draws(tr.PRNGKey(3), 300), card)
+                      for a in strength_graph(density, N=N))
+        draws = tr.to_device(tr.mis_draws(tr.PRNGKey(3), N), card)
         got = tgraph.mis_split(As, active, draws)
         want = tgraph.mis_split(As.cpu(), active.cpu(), draws.cpu())
         for a, b in zip((*got[0], got[1], got[2]),
