@@ -21,9 +21,9 @@ device's busy time (the union of kernel intervals), its idle share, the
 kernel launches and host reads per outer iteration, the mixed path's
 refinement rounds and reverted rounds in the window, the operators with
 the most device time, and ``layers``: per layer of the solve, its
-launches (kernel and graph launches as the host issues them), host
-microseconds, device microseconds and host reads, each per outer
-iteration and exclusive of the layers nested in it.
+launches (kernel and graph launches as the host issues them), copies
+and memsets, host microseconds, device microseconds and host reads,
+each per outer iteration and exclusive of the layers nested in it.
 
 The layers are ``torch.profiler.record_function`` ranges that this
 script installs by wrapping the package's module-level functions where
@@ -36,8 +36,11 @@ replay a Newton solve on the chunked and fused drivers), ``deep_matrix``
 ``amg_solve``,
 ``he_solve`` (the guess draw and, mixed, the refinement rounds around
 the correction solves), ``build_he_solver`` (the rest of a Newton
-system's set-up), ``merit`` (the Armijo merit), ``outer_step`` (the rest
-of the SsN step and the outer step) and ``driver`` (the rest).  A launch
+system's set-up), ``merit`` (the Armijo merit, where it runs op by op),
+``outer_step`` (the rest of the SsN step and the outer step; on the
+chunked and fused drivers the replays of the step's regions, whose
+graphs hold the merit, and the copies into them) and ``driver`` (the
+rest).  A launch
 belongs to the innermost range open on the host when it is issued, and
 a kernel's device time to its launch (by the profiler's correlation
 id).  Each layer also counts the card's host syncs
@@ -114,7 +117,7 @@ SPARSE_LAYERS = (
 # Reads of each module's loop exits.
 FETCH_USERS = ("otamg_torch.amg.graph", "otamg_torch.amg.hierarchy",
                "otamg_torch.hybrid.solver", "otamg_torch.opt.apd",
-               "otamg_torch.opt.apd2")
+               "otamg_torch.opt.apd2", "otamg_torch.opt.regions")
 
 
 class Layers:
@@ -242,9 +245,10 @@ class Layers:
 
 
 def layer_table(prof, reads, per: float, names, syncs=None) -> dict:
-    """Per range: launches, exclusive host and device microseconds, host
-    reads, host syncs (``syncs``, by range) and copies from pageable
-    memory, each divided by ``per``; from the profiler's raw events:
+    """Per range: launches, copies and memsets issued, exclusive host and
+    device microseconds, host reads, host syncs (``syncs``, by range) and
+    copies from pageable memory, each divided by ``per``; from the
+    profiler's raw events:
     ranges nest on one host thread, so one sweep in time order finds the
     innermost range of each launch, and a kernel's device time goes to
     its launch's range through the correlation id."""
@@ -266,6 +270,7 @@ def layer_table(prof, reads, per: float, names, syncs=None) -> dict:
     launches.sort()
     host = collections.Counter()
     nl = collections.Counter()
+    ncp = collections.Counter()
     graphs = collections.Counter()
     owner = {}
     stack = []   # [end, name, child_ns]
@@ -291,6 +296,8 @@ def layer_table(prof, reads, per: float, names, syncs=None) -> dict:
         if what in LAUNCHES:
             nl[name] += 1
             graphs[name] += int(what == "cudaGraphLaunch")
+        else:
+            ncp[name] += 1
     dev = collections.Counter()
     pageable = collections.Counter()
     for corr, dur, paged in kernels:
@@ -301,6 +308,7 @@ def layer_table(prof, reads, per: float, names, syncs=None) -> dict:
     keys = sorted(set(nl) | set(host) | set(reads) | set(dev) | set(syncs),
                   key=lambda k: -nl[k])
     return {k: dict(launches=nl[k] / per, graph_launches=graphs[k] / per,
+                    copies=ncp[k] / per,
                     host_us=host[k] / 1e3 / per, device_us=dev[k] / 1e3 / per,
                     host_reads=reads[k] / per, syncs=syncs[k] / per,
                     pageable_copies=pageable[k] / per) for k in keys}
@@ -410,6 +418,7 @@ def profile_solve(args, smi, solve, prob, opts) -> int:
     from otamg_torch.device import fetch
     from otamg_torch.dist.api import collectives
     from otamg_torch.hybrid.solver import refine_counts
+    from otamg_torch.opt.regions import step_graphs
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -419,6 +428,7 @@ def profile_solve(args, smi, solve, prob, opts) -> int:
     window = dataclasses.replace(opts, maxit=args.outer)
     torch.cuda.synchronize()
     reads0 = fetch.reads
+    step0 = step_graphs.captures, step_graphs.replays
     refine_counts.reset()
     layers = Layers()
     layers.install_solve()
@@ -459,6 +469,9 @@ def profile_solve(args, smi, solve, prob, opts) -> int:
         "eager_collectives_per_outer_iter": collectives.eager / res.iters,
         "replayed_collectives_per_outer_iter":
             collectives.replayed / res.iters,
+        "step_captures_in_window": step_graphs.captures - step0[0],
+        "step_replays_per_outer_iter":
+            (step_graphs.replays - step0[1]) / res.iters,
         "solve_dtype": args.solve_dtype, "driver": args.driver,
         "chunk": args.chunk if args.driver == "chunked" else None,
         "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,

@@ -59,11 +59,13 @@ Phases, each printing one JSON line with its numbers and seconds:
    500x500 once and 1024x1024 once through the chunked driver, each held
    to the JAX package's CPU f64 run (``CLASS2_REF``);
    setup_graph — the chunked (``chunk=8``) and fused drivers, each Newton
-   solve one replay of the setup's CUDA graph and the AMG block's, beside
-   the loop runs of phases 5 and 6 (the same setup, eager): Class-1
+   solve one replay of the setup's CUDA graph and the AMG block's, each
+   SsN step at least one replay of the outer step's regions, beside the
+   loop runs of phases 5 and 6 (the same setup and step, eager): Class-1
    500x500 chunked twice and fused, 1024x1024 chunked and fused, Class-2
    500x500 chunked, each bit for bit its loop run's trajectory, with one
-   setup replay a Newton solve, at most one capture a signature and the
+   setup replay a Newton solve, at most one capture a signature (each
+   step region captured by the first run of its signature) and the
    run's numbers;
 7. mixed    — the same Class-1 and Class-2 solves with
    ``solve_dtype="float32"`` (fp32 AMG hierarchy, exact kernel deflation,
@@ -116,9 +118,10 @@ Phases, each printing one JSON line with its numbers and seconds:
    chunked driver on (e)'s sharded Class-2 problem held to its sharded
    loop run bit for bit, each with its eager and replayed collectives
    (the AMG block's CUDA graph holds the level's NCCL collectives, the
-   setup's graph the gather of ``E``) and graph captures and replays;
-   fails unless a captured block and a captured setup hold a collective
-   and each Newton solve replays one setup.
+   setup's graph the gather of ``E``, the step's regions its sums) and
+   graph captures and replays; fails unless a captured block, a captured
+   setup and a captured step region hold a collective, each Newton solve
+   replays one setup and each SsN step the step's regions.
 
 Then one JSON line listing every kernel (``ell_spmv``, ``segment_sum``,
 ``mis_rounds`` and ``coarse_eigh``, each with its launches by path), the
@@ -712,6 +715,7 @@ def path_state() -> dict:
     launches)."""
     from otamg_torch.amg.hierarchy import amg_graphs, setup_graphs, setup_stats
     from otamg_torch.device import fetch
+    from otamg_torch.opt.regions import step_graphs
 
     setups, repairs, rounds, bails = setup_stats.read()
     return dict(reads=fetch.reads, setups=setups, repairs=repairs,
@@ -719,7 +723,9 @@ def path_state() -> dict:
                 setup_captures=setup_graphs.captures,
                 setup_replays=setup_graphs.replays,
                 amg_captures=amg_graphs.captures,
-                amg_replays=amg_graphs.replays, segment_sum=counts(),
+                amg_replays=amg_graphs.replays,
+                step_captures=step_graphs.captures,
+                step_replays=step_graphs.replays, segment_sum=counts(),
                 **setup_counts())
 
 
@@ -732,8 +738,9 @@ def run_numbers(res, before, sync, secs) -> dict:
     seconds: per outer iteration the host reads (``fetch``), all syncs
     and the syncs besides the reads (copies from pageable memory and
     other hidden syncs, with their top sites); per Newton solve the
-    setup's CUDA graph replays, the AMG block's, the defect repairs; the
-    MIS rounds per setup; the kernels' launches."""
+    setup's CUDA graph replays, the AMG block's, the defect repairs; per
+    SsN step (one Newton solve each) the outer step's region replays;
+    the MIS rounds per setup; the kernels' launches."""
     d = {k: v - before[k] for k, v in path_state().items()}
     iters = max(res.iters, 1)
     newton = max(int(res.ssn_itnum.sum()), 1)
@@ -748,6 +755,9 @@ def run_numbers(res, before, sync, secs) -> dict:
         setup_replays_per_newton_solve=d["setup_replays"] / newton,
         amg_captures=d["amg_captures"],
         amg_replays_per_newton_solve=d["amg_replays"] / newton,
+        step_captures=d["step_captures"],
+        step_replays=d["step_replays"],
+        step_replays_per_ssn_step=d["step_replays"] / newton,
         repairs=d["repairs"], repairs_per_newton_solve=d["repairs"] / newton,
         mis_rounds_per_setup=d["rounds"] / max(d["setups"], 1),
         mis_bails=d["bails"],
@@ -1457,19 +1467,25 @@ def phase_setup_graph(dev, loops):
     run (iterations, failures, SsN steps, every objective) and to its
     reference, with one setup replay and at least one AMG block replay per
     Newton solve, exactly one setup capture and one AMG block capture per
-    signature (the runs of one class and size share both), and at most
-    half the loop's host reads per outer iteration (Class 2: fewer).
-    Returns each run's launches."""
+    signature (the runs of one class and size share both), at least one
+    replay of the outer step's regions per SsN step, each region
+    captured by the first run of its signature only (chunk 8 and the
+    fused driver share it), and at most half the loop's host reads per
+    outer iteration (Class 2: fewer).  Returns each run's launches."""
     from otamg_torch.amg.hierarchy import amg_graphs, setup_graphs
     from otamg_torch.opt import (solve_class1_chunked, solve_class1_fused,
                                  solve_class2_chunked)
+    from otamg_torch.opt.regions import step_graphs
 
     chunked1 = lambda p, o: solve_class1_chunked(p, o, chunk=8)
     chunked2 = lambda p, o: solve_class2_chunked(p, o, chunk=8)
     amg_graphs.clear()
     setup_graphs.clear()
+    step_graphs.clear()
     launches = {}
-    captures = {}   # (class, size) -> [setup captures, AMG block captures]
+    # (class, size) -> [setup captures, AMG block captures, the step's
+    # region captures by run]
+    captures = {}
     runs = ((1, 500, "chunked", chunked1), (1, 500, "chunked_warm", chunked1),
             (1, 500, "fused", solve_class1_fused),
             (1, 1024, "chunked", chunked1),
@@ -1492,24 +1508,30 @@ def phase_setup_graph(dev, loops):
         emit(f"setup_graph_class{cls}_{size}", driver=name, **row)
         few_reads = (reads <= base_reads / 2 if cls == 1
                      else reads < base_reads)
-        got = captures.setdefault((cls, size), [0, 0])
+        got = captures.setdefault((cls, size), [0, 0, []])
         got[0] += nums["setup_captures"]
         got[1] += nums["amg_captures"]
+        got[2].append(nums["step_captures"])
         if not (row["same_as_loop"] and few_reads
                 and nums["setup_replays_per_newton_solve"] == 1.0
                 and nums["amg_replays_per_newton_solve"] >= 1.0
+                and nums["step_replays_per_ssn_step"] >= 1.0
                 and nums["setups"] == nums["newton_solves"]):
             raise AssertionError(f"Class-{cls} {size}x{size} {name} driver "
                                  "differs from the loop driver or does not "
                                  "replay one setup and the AMG block a "
-                                 "Newton solve")
+                                 "Newton solve and the step's regions an "
+                                 "SsN step")
     emit("setup_graph_caches", setup_captures=setup_graphs.captures,
          setup_replays=setup_graphs.replays, amg_captures=amg_graphs.captures,
-         amg_replays=amg_graphs.replays,
+         amg_replays=amg_graphs.replays, step_captures=step_graphs.captures,
+         step_replays=step_graphs.replays,
+         step_regions=sorted({name for _, name in step_graphs.blocks}),
          captures_by_run={f"class{c}_{n}": v for (c, n), v in captures.items()})
-    if any(v != [1, 1] for v in captures.values()):
-        raise AssertionError(f"not one setup and one AMG block capture per "
-                             f"signature: {captures}")
+    if any(v[:2] != [1, 1] or not v[2][0] or any(v[2][1:])
+           for v in captures.values()):
+        raise AssertionError(f"not one setup, one AMG block and one capture "
+                             f"of each step region per signature: {captures}")
     return launches
 
 
@@ -2080,14 +2102,17 @@ def dist_blocked_checks(dev, mesh, loops):
     256x256 chunked (15 outer iterations) held to (e)'s sharded loop run
     bit for bit.  Each row: seconds, host reads per outer iteration,
     eager and replayed collectives, graph captures and replays (the AMG
-    block's and the setup's), and ``segment_sum`` launches.  Fails
-    unless a captured AMG block holds a collective and is replayed, and
-    unless each Newton solve replays one captured setup, whose graph
-    holds the gather of ``E``."""
+    block's, the setup's and the outer step's regions'), and
+    ``segment_sum`` launches.  Fails unless a captured AMG block holds a
+    collective and is replayed, unless each Newton solve replays one
+    captured setup, whose graph holds the gather of ``E``, and unless
+    each SsN step replays the step's regions, whose graphs hold the
+    step's collectives."""
     from otamg_torch.amg.hierarchy import amg_graphs, setup_graphs
     from otamg_torch.dist import shard_class2
     from otamg_torch.opt import (solve_class1_chunked, solve_class1_fused,
                                  solve_class2_chunked)
+    from otamg_torch.opt.regions import step_graphs
 
     def class1(solve):
         return lambda: run_class1(500, 500, dev, class1_opts(),
@@ -2103,6 +2128,7 @@ def dist_blocked_checks(dev, mesh, loops):
                     shard_class2(p, mesh), o, chunk=8))))
     amg_graphs.clear()
     setup_graphs.clear()
+    step_graphs.clear()
     spmv, seg, setupk = {}, {}, {}
     for cls, name, run in runs:
         base, base_s, base_reads, base_coll = loops[cls]
@@ -2126,6 +2152,11 @@ def dist_blocked_checks(dev, mesh, loops):
                    setup_replays_per_newton_solve=LAST[
                        "setup_replays_per_newton_solve"],
                    setup_graph_collectives=setup_graphs.captured_collectives,
+                   step_captures=LAST["step_captures"],
+                   step_replays=LAST["step_replays"],
+                   step_replays_per_ssn_step=LAST[
+                       "step_replays_per_ssn_step"],
+                   step_graph_collectives=step_graphs.captured_collectives,
                    segment_sum_launches=n_seg,
                    same_as_loop=bool(
                        np.array_equal(res.fxk, base.fxk)
@@ -2139,15 +2170,17 @@ def dist_blocked_checks(dev, mesh, loops):
         emit(f"dist_{name}_class{cls}_{500 if cls == 1 else 256}", **row)
         if not (row["same_as_loop"] and n_seg and row["replays"] > 0
                 and counted_launches.replayed > 0
-                and row["setup_replays_per_newton_solve"] == 1.0):
+                and row["setup_replays_per_newton_solve"] == 1.0
+                and row["step_replays_per_ssn_step"] >= 1.0):
             raise AssertionError(f"sharded Class-{cls} {name} driver differs "
                                  "from the sharded loop run, replayed no "
-                                 "collective or not one setup a Newton "
-                                 "solve")
+                                 "collective, not one setup a Newton solve "
+                                 "or not the step's regions an SsN step")
     if not (amg_graphs.captured_collectives
-            and setup_graphs.captured_collectives):
-        raise AssertionError("no captured AMG block or setup holds a "
-                             "collective")
+            and setup_graphs.captured_collectives
+            and step_graphs.captured_collectives):
+        raise AssertionError("no captured AMG block, setup or step region "
+                             "holds a collective")
     return spmv, seg, setupk
 
 

@@ -67,6 +67,7 @@ from otamg_torch.config import AMGOptions, Cycle
 from otamg_torch.device import fetch
 from otamg_torch.dist import api
 from otamg_torch.dist.spmv import halo_columns, halo_product
+from otamg_torch.graphs import GraphCache
 from otamg_torch.krylov.pcg import pcg
 from otamg_torch.sparse.kernels import ell_spmv
 from otamg_torch.sparse.segment import SegmentPlan, segment_plan, segment_sum2
@@ -1149,71 +1150,6 @@ def _solve_step(cycle, mv0, lv1, dense, deep_D, b, safe0, retol_eff: float,
     return (torch.where(go, x1, x), torch.where(go, r1, r),
             torch.where(go, rel1, rel), torch.where(go, it1, it),
             go & ~done)
-
-
-class _Captured:
-    """A region captured as one CUDA graph: ``run(inputs)`` on static
-    copies of ``inputs``, whose outputs (``self.outputs``) stay in the
-    graph's pool and are written anew at each replay.  ``mesh`` is the
-    live mesh the region's collectives run on (None: it has none),
-    active during the warm-up and the capture; ``collectives`` counts
-    what the graph holds, added to ``api.collectives.replayed`` at each
-    replay."""
-
-    def __init__(self, inputs, run, mesh=None):
-        self.inputs = [t.clone() for t in inputs]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with api.use_mesh(mesh or api.current_mesh()):
-            with torch.cuda.stream(side):
-                # Warm-up outside the capture (cuBLAS and cuSOLVER
-                # workspaces, the kernels' first-call set-up, and the
-                # mesh's NCCL communicator, which a capture cannot
-                # create).
-                run(self.inputs)
-            torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            # NCCL's watchdog thread polls the events of the warm-up's
-            # collectives; only this thread's calls join the capture.
-            mode = "global" if mesh is None else "thread_local"
-            with api.collectives.capture() as held, \
-                    torch.cuda.graph(self.graph, capture_error_mode=mode):
-                self.outputs = run(self.inputs)
-        self.collectives = held[0]
-
-    def load(self, inputs) -> None:
-        """Copy ``inputs`` into the static inputs (from pinned host
-        memory without blocking the host)."""
-        for dst, src in zip(self.inputs, inputs):
-            dst.copy_(src, non_blocking=True)
-
-    def replay(self) -> None:
-        self.graph.replay()
-        api.collectives.replayed += self.collectives
-
-
-class GraphCache:
-    """Captured regions, one per signature; ``captures`` and ``replays``
-    count since ``clear``, and ``captured_collectives`` the collectives
-    of the regions captured."""
-
-    def __init__(self):
-        self.blocks: dict = {}
-        self.captures = self.replays = self.captured_collectives = 0
-
-    def clear(self) -> None:
-        self.blocks.clear()
-        self.captures = self.replays = self.captured_collectives = 0
-
-    def get(self, sig, inputs, run, mesh=None) -> _Captured:
-        """The region of ``sig``, captured from ``inputs`` and ``run``
-        the first time."""
-        blk = self.blocks.get(sig)
-        if blk is None:
-            blk = self.blocks[sig] = _Captured(inputs, run, mesh)
-            self.captures += 1
-            self.captured_collectives += blk.collectives
-        return blk
 
 
 amg_graphs = GraphCache()

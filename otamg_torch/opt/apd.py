@@ -38,13 +38,16 @@ convergence flag rides on the next step's first read.  They run a
 row-sharded problem as ``solve_class1`` does; every flag a block reads
 is replicated (reduced over the mesh), so every rank leaves each loop
 after the same block, and on a card the AMG block's CUDA graph holds
-the level's collectives.
+the level's collectives.  Around the Newton solve their step runs as
+the regions of :mod:`otamg_torch.opt.regions`, on a card one CUDA graph
+each, with the step's collectives inside.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import types
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -56,6 +59,9 @@ from otamg_torch.device import fetch
 from otamg_torch.dist import api
 from otamg_torch.opt.admm import warmup_class1
 from otamg_torch.opt.newton import NewtonSolver, make_pcg_solver
+from otamg_torch.opt.regions import (Regions, StepFns, armijo_steps,
+                                     count_solve, ssn_counters,
+                                     step_signature)
 from otamg_torch.ot import operators as op
 from otamg_torch.ot.problems import Class1Problem
 
@@ -183,62 +189,18 @@ def read_metrics(ssn_it: int, row) -> OuterMetrics:
         restarted=bool(rs), ncomp=int(nc), last=int(la))
 
 
-def ssn_counters(dev):
-    """Zeroed ``(it_min, it_sum, it_max, fail)`` device counters."""
-    big = torch.full((), np.iinfo(np.int32).max, dtype=torch.int64,
-                     device=dev)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    return big, zero, zero, zero
-
-
-def count_solve(counters, iters, solver_maxit: int):
-    """The counters after one Newton solve of ``iters`` iterations (an
-    int or a device tensor)."""
-    it_min, it_sum, it_max, fail = counters
-    iters = torch.as_tensor(iters, dtype=torch.int64, device=it_min.device)
-    return (torch.minimum(it_min, iters), it_sum + iters,
-            torch.maximum(it_max, iters),
-            fail + (iters >= solver_maxit).to(torch.int64))
-
-
-def armijo_steps(opts: APDOptions) -> list[float]:
-    """The backtracking steps ``1, delta, delta^2, ...`` of trials
-    ``0 .. ll_max``, each the product of its predecessor and ``delta``,
-    as the loop forms them."""
-    steps = [1.0]
-    for _ in range(opts.ll_max):
-        steps.append(steps[-1] * opts.delta)
-    return steps
-
-
-def armijo(trial, opts: APDOptions, exit_every: int):
-    """The Armijo search over the trials of :func:`armijo_steps`.
-    ``trial(step) -> (accept, done, carry)`` returns the trial's
-    acceptance test, its SsN exit test and what the caller keeps.  With
-    ``exit_every == 1`` each trial reads its acceptance test, and the
-    accepted trial's exit test is left to the caller (``done`` None).
-    Otherwise the first trial runs alone (most Newton steps take the
-    full step) and later ones in blocks of ``exit_every``, each block
-    reading the acceptance and exit tests of its trials at once.
-    Returns ``(carry, done)`` of the accepted trial (trial ``ll_max``
-    when none passes)."""
-    steps = armijo_steps(opts)
-    if exit_every == 1:
-        for ll, step in enumerate(steps):
-            accept, _, carry = trial(step)
-            # A non-finite merit is "not yet acceptable".
-            if ll >= opts.ll_max or fetch(accept):
-                return carry, None
-    ll = 0
-    while True:
-        outs = [trial(step)
-                for step in steps[ll:ll + (1 if ll == 0 else exit_every)]]
-        got = fetch(torch.stack([t for acc, done, _ in outs
-                                 for t in (acc, done)]))
-        for j, out in enumerate(outs):
-            if got[2 * j] or ll + j >= opts.ll_max:
-                return out[2], bool(got[2 * j + 1])
-        ll += len(outs)
+def armijo(trial, opts: APDOptions):
+    """The loop driver's Armijo search over the trials of
+    :func:`otamg_torch.opt.regions.armijo_steps`, one read a trial:
+    ``trial(step) -> (accept, carry)``; returns the ``carry`` of the
+    accepted trial (trial ``ll_max`` when none passes).  The blocked
+    drivers search in blocks (:meth:`otamg_torch.opt.regions.Regions.
+    armijo`)."""
+    for ll, step in enumerate(armijo_steps(opts)):
+        accept, carry = trial(step)
+        # A non-finite merit is "not yet acceptable".
+        if ll >= opts.ll_max or fetch(accept):
+            return carry
 
 
 def make_class1_step(prob: Class1Problem, opts: APDOptions,
@@ -247,26 +209,28 @@ def make_class1_step(prob: Class1Problem, opts: APDOptions,
                      exit_every: int = 1):
     """Build the APD outer step ``(k, X, V, lam, bk, key, resk_prev,
     kkt_norm0, conv_prev=None, record=False) -> (X, V, lam, bk, key,
-    resk, metrics)`` for ``prob``, where ``resk`` is the step's max(kkt_x, kkt_l) on the
-    device.  With ``solver=None`` the Newton solver is built here, once,
-    with the same ``exit_every``.  ``lam`` is in the dual dtype of
-    :func:`hi_dtypes`.
+    resk, metrics)`` for ``prob``, where ``resk`` is the step's
+    max(kkt_x, kkt_l) on the device.  With ``solver=None`` the Newton
+    solver is built here, once, with the same ``exit_every``.  ``lam``
+    is in the dual dtype of :func:`hi_dtypes`.
 
     ``exit_every`` is the read interval of every data-dependent loop of
     the step, the counterpart of the JAX step's ``fused=True``.  At 1
-    each loop test is one read.  Above 1 the loops inside the Newton
+    each loop test is one read and the step runs op by op: the loop
+    driver's reference trajectory.  Above 1 the loops inside the Newton
     solve read once a block (:func:`otamg_torch.amg.hierarchy.amg_solve`)
-    and Armijo reads its trials' acceptance and SsN exit tests in blocks
-    (:func:`armijo`).  ``metrics`` holds host numbers (one read per
-    step), or with ``record=True`` is a :class:`StepRecord` left on the
-    device.  The device flag ``conv_prev`` (the previous step converged)
-    rides on the step's first read: when it is set the step returns
-    None."""
+    and the rest of the step runs as the regions of
+    :mod:`otamg_torch.opt.regions` (one CUDA graph each on a card), with
+    one read for the SsN entry test and one per block of Armijo trials;
+    the trajectory is the loop's.  ``metrics`` holds host numbers (one
+    read per step), or with ``record=True`` is a :class:`StepRecord`
+    left on the device.  The device flag ``conv_prev`` (the previous
+    step converged) rides on the step's first read: when it is set the
+    step returns None."""
     p, q, C, gama = prob.p, prob.q, prob.C, prob.gama
     b = prob.b
     dev, dtype = C.device, C.dtype
     hi, acc = hi_dtypes(dtype)
-    b_hi = b.to(hi)
     if capacitated is None:
         capacitated = bool(fetch(api.pmax(torch.any(torch.isfinite(gama)),
                                           prob.mesh)))
@@ -279,9 +243,163 @@ def make_class1_step(prob: Class1Problem, opts: APDOptions,
                     (InnerSolver.AMG, InnerSolver.TWOGRID)
                     else opts.pcg.maxit)
 
-    def F_of(lam, Zk, bk1, wlk):
-        return (bk1 * lam
-                - op.apply_A(op.prox_box(Zk, gama), p, q, acc).to(hi) - wlk)
+    # The problem's tensors, ``b`` made once (a property, which gathers
+    # under a mesh), and the step's algebra over ``d``, which holds them:
+    # ``loop_d`` (the loop) or the regions' state.
+    data = dict(C=C, gama=gama, p=p, q=q, b=b)
+    loop_d = types.SimpleNamespace(**data)
+
+    def F_of(d, lam, Zk, bk1, wlk):
+        return (bk1 * lam - op.apply_A(op.prox_box(Zk, d.gama), d.p, d.q,
+                                       acc).to(hi) - wlk)
+
+    def merit(d, lam, Zk, wlk, bk1, tk):
+        return _merit(lam, Zk, wlk, bk1, tk, d.gama, capacitated, acc)
+
+    def head(d, kf2, X, V, lam, bk):
+        """``(ak, bk1, tk, ssn_tol, Wk, wlk)`` of step ``k``; ``kf2`` is
+        ``k^2`` on the device, so that every driver divides by it
+        alike."""
+        ak = torch.sqrt(kf2 * bk)
+        bk1 = bk / (1 + ak)
+        tk = bk * (1 + ak) / (ak * ak)
+        ssn_tol = torch.clamp_min(bk1 / kf2, opts.ssn_tol1)
+        Wk = -d.C + bk * (X + ak * V) / (ak * ak)
+        b_hi = d.b.to(hi)
+        wlk = (bk1 * (lam - (op.apply_A(X, d.p, d.q, acc).to(hi) - b_hi)
+                      / bk) - b_hi)
+        return ak, bk1, tk, ssn_tol, Wk, wlk
+
+    def pre(d, lam, Wk, tk, bk1, wlk):
+        """``(A^T lam, z, S, F, ||F||)`` at the SsN iterate ``lam``."""
+        At_lam = op.apply_At(lam.to(dtype), d.p, d.q)
+        Zk = (Wk - At_lam) / tk
+        Fk = F_of(d, lam, Zk, bk1, wlk)
+        return (At_lam, Zk, ((Zk >= 0) & (Zk <= d.gama)).to(dtype), Fk,
+                torch.linalg.vector_norm(Fk))
+
+    def trial(lam_old, zeta, Wk, At_lam, At_zeta, tk, step, step_lo):
+        """An Armijo trial's ``(lam, z)`` (:182-211), affine in the
+        step."""
+        return lam_old + step * zeta, (Wk - At_lam - step_lo * At_zeta) / tk
+
+    def exit_test(nFk_old, nFk_new, ssn_tol):
+        # Break conditions of :213-231: converged, stagnated.
+        return (nFk_new <= ssn_tol,
+                torch.abs(nFk_old - nFk_new) < ssn_tol / 100)
+
+    def tail(d, X, lam, ak, bk1, Zk, lam1, u, resk_prev, kkt_norm0, info):
+        """``(X1, V1, lam1, bk1, resk, rec)``: the new iterate after the
+        restart heuristic, whose draw is ``u``, and the record row;
+        ``info`` is the SsN loop's ``(ncomp, last, it_min, it_sum,
+        it_max, fail)``."""
+        X1 = op.prox_box(Zk, d.gama)
+        V1 = X1 + (X1 - X) / ak
+        # Restart heuristic (:241-249): the normalized new KKT residual
+        # against the raw previous one, as the reference does.
+        kx1, kl1 = op.kkt_class1(X1, lam1, d.C, d.b, d.p, d.q, d.gama, acc)
+        rr = torch.maximum(kx1 / (1 + kkt_norm0[0]),
+                           kl1 / (1 + kkt_norm0[1]))
+        restart = (bk1 < opts.restart_bk_floor) & (rr > resk_prev)
+        bk1 = torch.where(restart, u, bk1)
+        X1 = torch.where(restart, X, X1)
+        lam1 = torch.where(restart, lam, lam1)
+        V1 = torch.where(restart, X, V1)
+        # Final residual record (:253-254) at the possibly-reverted state.
+        kx, kl = op.kkt_class1(X1, lam1, d.C, d.b, d.p, d.q, d.gama, acc)
+        fxk = op.vdot_plan(d.C, X1, acc)
+        rec = torch.stack([t.to(torch.float64)
+                           for t in (kx, kl, fxk, restart, *info)])
+        return X1, V1, lam1, bk1, torch.maximum(kx, kl).to(dtype), rec
+
+    if exit_every > 1:
+        def r_pre(st):
+            (st.At_lam, st.Zk_old, st.S, st.Fk_old,
+             st.nFk_old) = pre(st, st.lam_c, st.Wk, st.tk, st.bk1h, st.wlk)
+            st.rhs = (-st.Fk_old).to(dtype)
+
+        def r_head(st):
+            (st.ak, st.bk1, st.tk, st.ssn_tol, st.Wk,
+             st.wlk) = head(st, st.kf2.to(dtype), st.X, st.V, st.lam, st.bk)
+            st.bk1h = st.bk1.to(hi)
+            st.lam_c = st.lam
+            st.it_min, st.it_sum, st.it_max, st.fail = ssn_counters(dev)
+            st.ncomp = st.last = torch.zeros((), dtype=torch.int64,
+                                             device=dev)
+            r_pre(st)
+            st.Zk = st.Zk_old
+            st.flags = torch.stack([st.nFk_old <= st.ssn_tol, st.conv])
+
+        def r_prepare(st):
+            st.zeta_h = st.zeta.to(hi)
+            st.At_zeta = op.apply_At(st.zeta.to(dtype), st.p, st.q)
+            st.cF_old = merit(st, st.lam_c, st.Zk_old, st.wlk, st.bk1h,
+                              st.tk)
+            st.ress = torch.abs(torch.dot(st.Fk_old, st.zeta_h))
+
+        def r_trial(st, step, step_lo, nu_step):
+            lam_t, Z_t = trial(st.lam_c, st.zeta_h, st.Wk, st.At_lam,
+                               st.At_zeta, st.tk, step, step_lo)
+            cF_new = merit(st, lam_t, Z_t, st.wlk, st.bk1h, st.tk)
+            nF = torch.linalg.vector_norm(F_of(st, lam_t, Z_t, st.bk1h,
+                                              st.wlk))
+            conv, stag = exit_test(st.nFk_old, nF, st.ssn_tol)
+            return cF_new <= st.cF_old - nu_step * st.ress, conv | stag, nF
+
+        def r_accept(st):
+            lam_t, Z_t = trial(st.lam_c, st.zeta_h, st.Wk, st.At_lam,
+                               st.At_zeta, st.tk, st.step,
+                               st.step.to(dtype))
+            conv, stag = exit_test(st.nFk_old, st.nF_sel, st.ssn_tol)
+            # A stagnation exit that leaves ||F|| above the tolerance is
+            # rejected (it carried < ssn_tol/100 of progress).
+            reject = stag & ~conv
+            st.lam_c = torch.where(reject, st.lam_c, lam_t)
+            st.Zk = torch.where(reject, st.Zk_old, Z_t)
+
+        def r_tail(st):
+            (st.X1, st.V1, st.lam1, st.bk_out, st.resk, st.rec) = tail(
+                st, st.X, st.lam, st.ak, st.bk1, st.Zk, st.lam_c,
+                st.u.to(dtype), st.resk_prev, st.kkt0,
+                (st.ncomp, st.last, st.it_min, st.it_sum, st.it_max,
+                 st.fail))
+
+        def r_solve(st, key):
+            return solver(st.S, zeros_t, st.bk1, st.tk, st.rhs, key)
+
+        mesh = api.live_mesh(prob.mesh)
+        regions = Regions(
+            step_signature(1, (C, gama, p, q, b), exit_every,
+                           (capacitated, opts.nu, opts.ssn_tol1,
+                            opts.restart_bk_floor, solver_maxit), mesh),
+            dev, mesh, opts, exit_every, solver_maxit)
+        fns = StepFns(r_head, r_pre, r_prepare, r_trial, r_accept, r_tail,
+                      r_solve)
+        token = object()
+
+        def blocked_step(k, X, V, lam, bk, key, resk_prev, kkt_norm0,
+                         conv_prev=None, record=False):
+            """One APD iteration as regions; the SsN chain's key, then
+            the restart draw's, split off as the loop splits them."""
+            st = regions.st
+            regions.own(token, data)
+            key, sub = jr.split(key)
+            key, sub_r = jr.split(key)
+            regions.load(
+                kf2=float(k * k), u=float(jr.uniform(sub_r, (), dtype)),
+                X=X, V=V, lam=lam, bk=bk, resk_prev=resk_prev,
+                kkt0=kkt_norm0, conv=False if conv_prev is None else conv_prev)
+            it = regions.ssn(fns, sub)
+            if it is None:
+                return None
+            # The state is written anew by the next step: copies out.
+            rec = StepRecord(it, st.rec.clone())
+            metrics = rec if record else read_metrics(it, fetch(rec.rec))
+            return (st.X1.clone(), st.V1.clone(), st.lam1.clone(),
+                    st.bk_out.clone(), key, st.resk.clone(), metrics)
+
+        blocked_step.regions = regions
+        return api.on_mesh(prob.mesh, blocked_step)
 
     def ssn_solve(Wk, wlk, lam0, bk1, tk, ssn_tol, key, conv_prev):
         """The SsN loop (``Class1/APD_SsN_Class1.m:137-238``).  ``lam0``,
@@ -289,7 +407,7 @@ def make_class1_step(prob: Class1Problem, opts: APDOptions,
         the plan's.  None when ``conv_prev`` reads set."""
         lam = lam0
         Zk = (Wk - op.apply_At(lam0.to(dtype), p, q)) / tk
-        nF0 = torch.linalg.vector_norm(F_of(lam, Zk, bk1, wlk))
+        nF0 = torch.linalg.vector_norm(F_of(loop_d, lam, Zk, bk1, wlk))
         it = 0
         counters = ssn_counters(dev)
         ncomp = last = torch.zeros((), dtype=torch.int64, device=dev)
@@ -301,46 +419,27 @@ def make_class1_step(prob: Class1Problem, opts: APDOptions,
                 return None
         while not done:
             lam_old = lam
-            At_lam = op.apply_At(lam_old.to(dtype), p, q)
-            Zk_old = (Wk - At_lam) / tk
-            S = ((Zk_old >= 0) & (Zk_old <= gama)).to(dtype)
-            Fk_old = F_of(lam_old, Zk_old, bk1, wlk)
-            nFk_old = torch.linalg.vector_norm(Fk_old)
+            At_lam, Zk_old, S, Fk_old, nFk_old = pre(loop_d, lam_old, Wk, tk,
+                                                     bk1, wlk)
             key, sub = jr.split(key)
             sol = solver(S, zeros_t, bk1.to(dtype), tk, (-Fk_old).to(dtype),
                          sub)
             zeta = sol.zeta.to(hi)
-            # Armijo backtracking (:182-211), affine in `step`.
             At_zeta = op.apply_At(sol.zeta.to(dtype), p, q)
-            cF_old = _merit(lam_old, Zk_old, wlk, bk1, tk, gama, capacitated,
-                            acc)
+            cF_old = merit(loop_d, lam_old, Zk_old, wlk, bk1, tk)
             ress = torch.abs(torch.dot(Fk_old, zeta))
 
-            def exit_test(nFk_new):
-                # Break conditions of :213-231: converged, stagnated.
-                conv = nFk_new <= ssn_tol
-                stag = torch.abs(nFk_old - nFk_new) < ssn_tol / 100
-                return conv, stag
+            def try_step(step):
+                lam_t, Z_t = trial(lam_old, zeta, Wk, At_lam, At_zeta, tk,
+                                   step, step)
+                cF_new = merit(loop_d, lam_t, Z_t, wlk, bk1, tk)
+                return cF_new <= cF_old - opts.nu * step * ress, (lam_t, Z_t)
 
-            def trial(step):
-                lam_t = lam_old + step * zeta
-                Z_t = (Wk - At_lam - step * At_zeta) / tk
-                cF_new = _merit(lam_t, Z_t, wlk, bk1, tk, gama, capacitated,
-                                acc)
-                accept = cF_new <= cF_old - opts.nu * step * ress
-                if exit_every == 1:
-                    return accept, None, (lam_t, Z_t, None)
-                nF = torch.linalg.vector_norm(F_of(lam_t, Z_t, bk1, wlk))
-                conv, stag = exit_test(nF)
-                return accept, conv | stag, (lam_t, Z_t, nF)
-
-            (lam_t, Z_t, nFk_new), done_read = armijo(trial, opts,
-                                                      exit_every)
-            if nFk_new is None:
-                nFk_new = torch.linalg.vector_norm(F_of(lam_t, Z_t, bk1,
-                                                        wlk))
+            lam_t, Z_t = armijo(try_step, opts)
+            nFk_new = torch.linalg.vector_norm(F_of(loop_d, lam_t, Z_t, bk1,
+                                                    wlk))
             it += 1
-            conv, stag = exit_test(nFk_new)
+            conv, stag = exit_test(nFk_old, nFk_new, ssn_tol)
             # A stagnation exit that leaves ||F|| above the tolerance is
             # rejected (it carried < ssn_tol/100 of progress).
             reject = stag & ~conv
@@ -348,56 +447,30 @@ def make_class1_step(prob: Class1Problem, opts: APDOptions,
             Zk = torch.where(reject, Zk_old, Z_t)
             counters = count_solve(counters, sol.iters, solver_maxit)
             ncomp, last = sol.ncomp, sol.last
-            if done_read is None:
-                done_read = bool(fetch(conv | stag))
-            done = done_read or it >= opts.ssn_maxit
+            done = bool(fetch(conv | stag)) or it >= opts.ssn_maxit
         return _Ssn(lam, Zk, it, *counters, ncomp, last)
 
     def outer_step(k, X, V, lam, bk, key, resk_prev, kkt_norm0,
                    conv_prev=None, record=False):
         """One APD iteration (``Class1/APD_SsN_Class1.m:101-275``);
         ``record`` leaves the metrics on the device."""
-        kf = float(k)
-        ak = torch.sqrt(kf ** 2 * bk)
-        bk1 = bk / (1 + ak)
-        tk = bk * (1 + ak) / (ak * ak)
-        ssn_tol = torch.clamp_min(bk1 / kf ** 2, opts.ssn_tol1)
-        Wk = -C + bk * (X + ak * V) / (ak * ak)
-        wlk = (bk1 * (lam - (op.apply_A(X, p, q, acc).to(hi) - b_hi) / bk)
-               - b_hi)
-
+        kf2 = torch.full((), float(k * k), dtype=dtype, device=dev)
+        ak, bk1, tk, ssn_tol, Wk, wlk = head(loop_d, kf2, X, V, lam, bk)
         key, sub = jr.split(key)
         ssn = ssn_solve(Wk, wlk, lam, bk1.to(hi), tk, ssn_tol, sub,
                         conv_prev)
         if ssn is None:
             return None
-        lam1 = ssn.lam
-        X1 = op.prox_box(ssn.Zk, gama)
-        V1 = X1 + (X1 - X) / ak
-
-        # Restart heuristic (:241-249): the normalized new KKT residual
-        # against the raw previous one, as the reference does.
-        kx1, kl1 = op.kkt_class1(X1, lam1, C, b, p, q, gama, acc)
-        rr = torch.maximum(kx1 / (1 + kkt_norm0[0]),
-                           kl1 / (1 + kkt_norm0[1]))
         key, sub = jr.split(key)
-        restart = (bk1 < opts.restart_bk_floor) & (rr > resk_prev)
-        bk1 = torch.where(restart, jr.uniform(sub, (), dtype, dev), bk1)
-        X1 = torch.where(restart, X, X1)
-        lam1 = torch.where(restart, lam, lam1)
-        V1 = torch.where(restart, X, V1)
-
-        # Final residual record (:253-254) at the possibly-reverted state.
-        kx, kl = op.kkt_class1(X1, lam1, C, b, p, q, gama, acc)
-        fxk = op.vdot_plan(C, X1, acc)
-        rec = StepRecord(ssn.it, torch.stack([
-            t.to(torch.float64) for t in (kx, kl, fxk, restart, ssn.ncomp,
-                                          ssn.last, ssn.it_min, ssn.it_sum,
-                                          ssn.it_max, ssn.fail)]))
+        X1, V1, lam1, bk1, resk, rec = tail(
+            loop_d, X, lam, ak, bk1, ssn.Zk, ssn.lam,
+            jr.uniform(sub, (), dtype, dev), resk_prev, kkt_norm0,
+            (ssn.ncomp, ssn.last, ssn.it_min, ssn.it_sum, ssn.it_max,
+             ssn.fail))
+        rec = StepRecord(ssn.it, rec)
         metrics = (rec if record
                    else read_metrics(rec.ssn_it, fetch(rec.rec)))
-        return (X1, V1, lam1, bk1, key, torch.maximum(kx, kl).to(dtype),
-                metrics)
+        return X1, V1, lam1, bk1, key, resk, metrics
 
     return api.on_mesh(prob.mesh, outer_step)
 

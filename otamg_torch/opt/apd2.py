@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import types
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -45,8 +46,10 @@ from otamg_torch.dist import api
 from otamg_torch.krylov.pcg import pcg
 from otamg_torch.opt.admm import warmup_class2
 from otamg_torch.opt.apd import (FUSED_EXIT_EVERY, StepRecord, armijo,
-                                 count_solve, hi_dtypes, ssn_counters)
+                                 hi_dtypes)
 from otamg_torch.opt.newton import NewtonSolveResult, NewtonSolver
+from otamg_torch.opt.regions import (Regions, StepFns, count_solve,
+                                     ssn_counters, step_signature)
 from otamg_torch.ot import operators as op
 from otamg_torch.ot.problems import Class2Problem
 
@@ -200,141 +203,93 @@ def make_class2_step(prob: Class2Problem, opts: APDOptions,
     :func:`otamg_torch.opt.apd.hi_dtypes`.
 
     ``exit_every``, ``conv_prev`` and ``record`` as in
-    :func:`otamg_torch.opt.apd.make_class1_step`: ``metrics`` holds host
-    numbers (one read per step) or, with ``record``, is a
+    :func:`otamg_torch.opt.apd.make_class1_step`: above 1 the step runs
+    as the regions of :mod:`otamg_torch.opt.regions`; ``metrics`` holds
+    host numbers (one read per step) or, with ``record``, is a
     :class:`otamg_torch.opt.apd.StepRecord`."""
     p, q, C, Phi = prob.p, prob.q, prob.C, prob.Phi
     b = prob.b
     n = prob.n
     dtype, dev = C.dtype, C.device
     hi, acc = hi_dtypes(dtype)
-    b_hi = b.to(hi)
     if solver is None:
         solver = make_pot_solver_from_options(p, q, Phi, opts, exit_every)
     solver_maxit = (opts.amg.maxit if opts.inner_solver in
                     (InnerSolver.AMG, InnerSolver.TWOGRID)
                     else opts.pcg.maxit)
 
-    def Hu(X, us, out_dtype=None):
-        return op.apply_H(X, us[:n], us[n:], p, q, Phi, out_dtype)
+    # The problem's tensors, ``b`` made once (a property, which gathers
+    # under a mesh), and the step's algebra over ``d``, which holds them:
+    # ``loop_d`` (the loop) or the regions' state.
+    data = dict(C=C, Phi=Phi, p=p, q=q, b=b)
+    loop_d = types.SimpleNamespace(**data)
 
-    def ssn_solve(WX, ws, wlk, lam0, bk1, tk, ssn_tol, key, tail,
-                  conv_prev):
-        """The SsN loop (``Class2/APD_SsN_Class2.m:136-243``).  ``tail``
-        (a device flag) relaxes the entry test to ``10 * ssn_tol``: in the
-        marginal tail the previous lambda already meets the inexactness
-        criterion up to a constant, and noise-scale Newton nudges would
-        re-excite the feasibility residual.  None when ``conv_prev``
-        reads set."""
+    def Hu(d, X, us, out_dtype=None):
+        return op.apply_H(X, us[:n], us[n:], d.p, d.q, d.Phi, out_dtype)
 
-        def z_of(lam):
-            HtX, Hts = op.apply_Ht(lam.to(dtype), p, q, Phi)
-            return (WX - HtX) / tk, (ws - Hts) / tk
+    def z_of(d, lam, WX, ws, tk):
+        """``(H^T lam, z(lam))``, each split into its plan and slack
+        blocks."""
+        HtX, Hts = op.apply_Ht(lam.to(dtype), d.p, d.q, d.Phi)
+        return HtX, Hts, (WX - HtX) / tk, (ws - Hts) / tk
 
-        def F_of(lam, ZX, zs):
-            PX, ps = op.prox_nonneg(ZX), op.prox_nonneg(zs)
-            return bk1 * lam - Hu(PX, ps, acc).to(hi) - wlk
+    def F_of(d, lam, ZX, zs, bk1, wlk):
+        PX, ps = op.prox_nonneg(ZX), op.prox_nonneg(zs)
+        return bk1 * lam - Hu(d, PX, ps, acc).to(hi) - wlk
 
-        lam = lam0
-        ZX, zs = z_of(lam0)
-        nF0 = torch.linalg.vector_norm(F_of(lam0, ZX, zs))
-        entry_tol = torch.where(tail, 10.0 * ssn_tol, ssn_tol)
-        it = 0
-        counters = ssn_counters(dev)
-        ncomp = last = torch.zeros((), dtype=torch.int64, device=dev)
-        if conv_prev is None:
-            done = bool(fetch(nF0 <= entry_tol))
-        else:
-            done, stop = fetch(torch.stack([nF0 <= entry_tol, conv_prev]))
-            if stop:
-                return None
-        while not done:
-            lam_old = lam
-            HtX_old, Hts_old = op.apply_Ht(lam_old.to(dtype), p, q, Phi)
-            ZX_old = (WX - HtX_old) / tk
-            zs_old = (ws - Hts_old) / tk
-            S = (ZX_old >= 0).to(dtype)
-            tmask = (zs_old >= 0).to(dtype)
-            Fk_old = F_of(lam_old, ZX_old, zs_old)
-            nFk_old = torch.linalg.vector_norm(Fk_old)
-            key, sub = jr.split(key)
-            sol = solver(S, tmask, bk1.to(dtype), tk, (-Fk_old).to(dtype),
-                         sub)
-            zeta = sol.zeta.to(hi)
-            # Armijo (:199-231), affine in the step.
-            HtzX, Htzs = op.apply_Ht(sol.zeta.to(dtype), p, q, Phi)
-            cF_old = _merit2(lam_old, ZX_old, zs_old, wlk, bk1, tk, acc)
-            ress = torch.abs(torch.dot(Fk_old, zeta))
-
-            def exit_test(nFk_new):
-                # Class 2's stagnation test uses the full tolerance (:223).
-                conv = nFk_new <= ssn_tol
-                stag = torch.abs(nFk_old - nFk_new) < ssn_tol
-                return conv, stag
-
-            def trial(step):
-                lam_t = lam_old + step * zeta
-                ZX_t = (WX - HtX_old - step * HtzX) / tk
-                zs_t = (ws - Hts_old - step * Htzs) / tk
-                cF_new = _merit2(lam_t, ZX_t, zs_t, wlk, bk1, tk, acc)
-                accept = cF_new <= cF_old - opts.nu * step * ress
-                if exit_every == 1:
-                    return accept, None, (lam_t, ZX_t, zs_t, None)
-                nF = torch.linalg.vector_norm(F_of(lam_t, ZX_t, zs_t))
-                conv, stag = exit_test(nF)
-                return accept, conv | stag, (lam_t, ZX_t, zs_t, nF)
-
-            (lam_t, ZX_t, zs_t, nFk_new), done_read = armijo(trial, opts,
-                                                             exit_every)
-            if nFk_new is None:
-                nFk_new = torch.linalg.vector_norm(F_of(lam_t, ZX_t, zs_t))
-            it += 1
-            conv, stag = exit_test(nFk_new)
-            # A stagnation exit above the tolerance is rejected: in the
-            # marginal tail such sub-tolerance nudges re-excite kkt_l.
-            reject = stag & ~conv
-            lam = torch.where(reject, lam_old, lam_t)
-            ZX = torch.where(reject, ZX_old, ZX_t)
-            zs = torch.where(reject, zs_old, zs_t)
-            counters = count_solve(counters, sol.iters, solver_maxit)
-            ncomp, last = sol.ncomp, sol.last
-            if done_read is None:
-                done_read = bool(fetch(conv | stag))
-            done = done_read or it >= opts.ssn_maxit
-        return _Ssn2(lam, ZX, zs, it, *counters, ncomp, last)
-
-    def outer_step(k, X, us, VX, vs, lam, bk, key, kkt0, prev_kkt,
-                   conv_prev=None, record=False):
-        """One APD iteration (``Class2/APD_SsN_Class2.m:95-285``)."""
-        kf = float(k)
-        ak = torch.sqrt(kf ** 2 * bk)
+    def head(d, kf2, X, us, VX, vs, lam, bk, kkt0, prev_kkt):
+        """``(ak, bk1, tk, ssn_tol, WX, ws, wlk, tail)`` of step ``k``
+        (``kf2 = k^2`` on the device, as in Class 1); ``tail`` (a device
+        flag) is the marginal-tail signature of the previous step."""
+        ak = torch.sqrt(kf2 * bk)
         bk1 = bk / (1 + ak)
         tk = bk * (1 + ak) / (ak * ak)
-        ssn_tol = torch.clamp_min(bk1 / kf ** 2, opts.ssn_tol1)
-        WX = -C + bk * (X + ak * VX) / (ak * ak)
+        ssn_tol = torch.clamp_min(bk1 / kf2, opts.ssn_tol1)
+        WX = -d.C + bk * (X + ak * VX) / (ak * ak)
         ws = bk * (us + ak * vs) / (ak * ak)   # the slack block of c is 0
-        wlk = bk1 * (lam - (Hu(X, us, acc).to(hi) - b_hi) / bk) - b_hi
-        # Marginal-tail signature of the previous iteration.
-        kkt0 = torch.as_tensor(kkt0, dtype=dtype, device=dev)
-        prev_kkt = torch.as_tensor(prev_kkt, dtype=dtype, device=dev)
+        b_hi = d.b.to(hi)
+        wlk = bk1 * (lam - (Hu(d, X, us, acc).to(hi) - b_hi) / bk) - b_hi
         prev_rel = prev_kkt / (1 + kkt0)
         tail = ((prev_rel[:3].amax() <= opts.kkt_tol)
                 & (prev_rel[3] > opts.kkt_tol))
+        return ak, bk1, tk, ssn_tol, WX, ws, wlk, tail
 
-        key, sub = jr.split(key)
-        ssn = ssn_solve(WX, ws, wlk, lam, bk1.to(hi), tk, ssn_tol, sub, tail,
-                        conv_prev)
-        if ssn is None:
-            return None
-        lam1 = ssn.lam
-        X1 = op.prox_nonneg(ssn.ZX)
-        us1 = op.prox_nonneg(ssn.zs)
+    def entry_tol(tail, ssn_tol):
+        # In the marginal tail the previous lambda already meets the
+        # inexactness criterion up to a constant, and noise-scale Newton
+        # nudges would re-excite the feasibility residual.
+        return torch.where(tail, 10.0 * ssn_tol, ssn_tol)
+
+    def pre(d, lam, WX, ws, tk, bk1, wlk):
+        """``(H^T lam, z, S, tmask, F, ||F||)`` at the SsN iterate
+        ``lam``, ``H^T lam`` and ``z`` as their two blocks."""
+        HtX, Hts, ZX, zs = z_of(d, lam, WX, ws, tk)
+        Fk = F_of(d, lam, ZX, zs, bk1, wlk)
+        return (HtX, Hts, ZX, zs, (ZX >= 0).to(dtype), (zs >= 0).to(dtype),
+                Fk, torch.linalg.vector_norm(Fk))
+
+    def trial(lam_old, zeta, WX, ws, HtX, Hts, HtzX, Htzs, tk, step,
+              step_lo):
+        """An Armijo trial's ``(lam, z_X, z_s)`` (:199-231), affine in the
+        step."""
+        return (lam_old + step * zeta, (WX - HtX - step_lo * HtzX) / tk,
+                (ws - Hts - step_lo * Htzs) / tk)
+
+    def exit_test(nFk_old, nFk_new, ssn_tol):
+        # Class 2's stagnation test uses the full tolerance (:223).
+        return nFk_new <= ssn_tol, torch.abs(nFk_old - nFk_new) < ssn_tol
+
+    def tail_of(d, X, us, lam, ak, bk1, ZX, zs, lam1, kkt0, prev_kkt, info):
+        """``(X1, us1, VX1, vs1, lam1, bk1, rec)``: the new iterate after
+        the restart (:246-256: the normalized new residual against the
+        raw previous one, as the reference does; no draw) and the record
+        row; ``info`` as in Class 1."""
+        X1 = op.prox_nonneg(ZX)
+        us1 = op.prox_nonneg(zs)
         VX1 = X1 + (X1 - X) / ak
         vs1 = us1 + (us1 - us) / ak
-
-        # Restart (:246-256): the normalized new residual against the raw
-        # previous one, as the reference does; no draw.
-        kk = op.kkt_class2(X1, us1[:n], us1[n:], lam1, C, b, p, q, Phi, acc)
+        kk = op.kkt_class2(X1, us1[:n], us1[n:], lam1, d.C, d.b, d.p, d.q,
+                           d.Phi, acc)
         rr = torch.amax(torch.stack([r / (1 + r0)
                                      for r, r0 in zip(kk, kkt0)]))
         restart = (bk1 < opts.restart_bk_floor) & (rr > prev_kkt.amax())
@@ -344,15 +299,179 @@ def make_class2_step(prob: Class2Problem, opts: APDOptions,
         lam1 = torch.where(restart, lam, lam1)
         VX1 = torch.where(restart, X, VX1)
         vs1 = torch.where(restart, us, vs1)
+        kx, ky, kz, kl = op.kkt_class2(X1, us1[:n], us1[n:], lam1, d.C, d.b,
+                                       d.p, d.q, d.Phi, acc)
+        fxk = op.vdot_plan(d.C, X1, acc)
+        rec = torch.stack([t.to(torch.float64)
+                           for t in (kx, ky, kz, kl, fxk, restart, *info)])
+        return X1, us1, VX1, vs1, lam1, bk1, rec
 
-        kx, ky, kz, kl = op.kkt_class2(X1, us1[:n], us1[n:], lam1, C, b,
-                                       p, q, Phi, acc)
-        fxk = op.vdot_plan(C, X1, acc)
-        rec = StepRecord(ssn.it, torch.stack([
-            t.to(torch.float64) for t in (kx, ky, kz, kl, fxk, restart,
-                                          ssn.ncomp, ssn.last, ssn.it_min,
-                                          ssn.it_sum, ssn.it_max,
-                                          ssn.fail)]))
+    if exit_every > 1:
+        def r_pre(st):
+            (st.HtX_old, st.Hts_old, st.ZX_old, st.zs_old, st.S, st.tmask,
+             st.Fk_old, st.nFk_old) = pre(st, st.lam_c, st.WX, st.ws, st.tk,
+                                          st.bk1h, st.wlk)
+            st.rhs = (-st.Fk_old).to(dtype)
+
+        def r_head(st):
+            (st.ak, st.bk1, st.tk, st.ssn_tol, st.WX, st.ws, st.wlk,
+             tail) = head(st, st.kf2.to(dtype), st.X, st.us, st.VX, st.vs,
+                          st.lam, st.bk, st.kkt0, st.prev_kkt)
+            st.bk1h = st.bk1.to(hi)
+            st.lam_c = st.lam
+            st.it_min, st.it_sum, st.it_max, st.fail = ssn_counters(dev)
+            st.ncomp = st.last = torch.zeros((), dtype=torch.int64,
+                                             device=dev)
+            r_pre(st)
+            st.ZX, st.zs = st.ZX_old, st.zs_old
+            st.flags = torch.stack([
+                st.nFk_old <= entry_tol(tail, st.ssn_tol), st.conv])
+
+        def r_prepare(st):
+            st.zeta_h = st.zeta.to(hi)
+            st.HtzX, st.Htzs = op.apply_Ht(st.zeta.to(dtype), st.p, st.q,
+                                           st.Phi)
+            st.cF_old = _merit2(st.lam_c, st.ZX_old, st.zs_old, st.wlk,
+                                st.bk1h, st.tk, acc)
+            st.ress = torch.abs(torch.dot(st.Fk_old, st.zeta_h))
+
+        def r_trial_at(st, step, step_lo):
+            return trial(st.lam_c, st.zeta_h, st.WX, st.ws, st.HtX_old,
+                         st.Hts_old, st.HtzX, st.Htzs, st.tk, step, step_lo)
+
+        def r_trial(st, step, step_lo, nu_step):
+            lam_t, ZX_t, zs_t = r_trial_at(st, step, step_lo)
+            cF_new = _merit2(lam_t, ZX_t, zs_t, st.wlk, st.bk1h, st.tk, acc)
+            nF = torch.linalg.vector_norm(F_of(st, lam_t, ZX_t, zs_t,
+                                              st.bk1h, st.wlk))
+            conv, stag = exit_test(st.nFk_old, nF, st.ssn_tol)
+            return cF_new <= st.cF_old - nu_step * st.ress, conv | stag, nF
+
+        def r_accept(st):
+            lam_t, ZX_t, zs_t = r_trial_at(st, st.step, st.step.to(dtype))
+            conv, stag = exit_test(st.nFk_old, st.nF_sel, st.ssn_tol)
+            # A stagnation exit above the tolerance is rejected: in the
+            # marginal tail such sub-tolerance nudges re-excite kkt_l.
+            reject = stag & ~conv
+            st.lam_c = torch.where(reject, st.lam_c, lam_t)
+            st.ZX = torch.where(reject, st.ZX_old, ZX_t)
+            st.zs = torch.where(reject, st.zs_old, zs_t)
+
+        def r_tail(st):
+            (st.X1, st.us1, st.VX1, st.vs1, st.lam1, st.bk_out,
+             st.rec) = tail_of(st, st.X, st.us, st.lam, st.ak, st.bk1,
+                               st.ZX, st.zs, st.lam_c, st.kkt0, st.prev_kkt,
+                               (st.ncomp, st.last, st.it_min, st.it_sum,
+                                st.it_max, st.fail))
+
+        def r_solve(st, key):
+            return solver(st.S, st.tmask, st.bk1, st.tk, st.rhs, key)
+
+        mesh = api.live_mesh(prob.mesh)
+        regions = Regions(
+            step_signature(2, (C, Phi, p, q, b), exit_every,
+                           (opts.nu, opts.ssn_tol1, opts.restart_bk_floor,
+                            opts.kkt_tol, solver_maxit), mesh),
+            dev, mesh, opts, exit_every, solver_maxit)
+        fns = StepFns(r_head, r_pre, r_prepare, r_trial, r_accept, r_tail,
+                      r_solve)
+        token = object()
+
+        def blocked_step(k, X, us, VX, vs, lam, bk, key, kkt0, prev_kkt,
+                         conv_prev=None, record=False):
+            """One APD iteration as regions."""
+            st = regions.st
+            regions.own(token, data)
+            key, sub = jr.split(key)
+            regions.load(
+                kf2=float(k * k),
+                X=X, us=us, VX=VX, vs=vs, lam=lam, bk=bk,
+                kkt0=torch.as_tensor(kkt0, dtype=dtype, device=dev),
+                prev_kkt=torch.as_tensor(prev_kkt, dtype=dtype, device=dev),
+                conv=False if conv_prev is None else conv_prev)
+            it = regions.ssn(fns, sub)
+            if it is None:
+                return None
+            # The state is written anew by the next step: copies out.
+            rec = StepRecord(it, st.rec.clone())
+            metrics = rec if record else read_metrics2(it, fetch(rec.rec))
+            return (st.X1.clone(), st.us1.clone(), st.VX1.clone(),
+                    st.vs1.clone(), st.lam1.clone(), st.bk_out.clone(), key,
+                    metrics)
+
+        blocked_step.regions = regions
+        return api.on_mesh(prob.mesh, blocked_step)
+
+    def ssn_solve(WX, ws, wlk, lam0, bk1, tk, ssn_tol, key, tail,
+                  conv_prev):
+        """The SsN loop (``Class2/APD_SsN_Class2.m:136-243``).  ``tail``
+        (a device flag) relaxes the entry test to ``10 * ssn_tol``.  None
+        when ``conv_prev`` reads set."""
+        lam = lam0
+        _, _, ZX, zs = z_of(loop_d, lam0, WX, ws, tk)
+        nF0 = torch.linalg.vector_norm(F_of(loop_d, lam0, ZX, zs, bk1, wlk))
+        it = 0
+        counters = ssn_counters(dev)
+        ncomp = last = torch.zeros((), dtype=torch.int64, device=dev)
+        if conv_prev is None:
+            done = bool(fetch(nF0 <= entry_tol(tail, ssn_tol)))
+        else:
+            done, stop = fetch(torch.stack([nF0 <= entry_tol(tail, ssn_tol),
+                                            conv_prev]))
+            if stop:
+                return None
+        while not done:
+            lam_old = lam
+            (HtX_old, Hts_old, ZX_old, zs_old, S, tmask, Fk_old,
+             nFk_old) = pre(loop_d, lam_old, WX, ws, tk, bk1, wlk)
+            key, sub = jr.split(key)
+            sol = solver(S, tmask, bk1.to(dtype), tk, (-Fk_old).to(dtype),
+                         sub)
+            zeta = sol.zeta.to(hi)
+            HtzX, Htzs = op.apply_Ht(sol.zeta.to(dtype), p, q, Phi)
+            cF_old = _merit2(lam_old, ZX_old, zs_old, wlk, bk1, tk, acc)
+            ress = torch.abs(torch.dot(Fk_old, zeta))
+
+            def try_step(step):
+                t = trial(lam_old, zeta, WX, ws, HtX_old, Hts_old, HtzX,
+                          Htzs, tk, step, step)
+                cF_new = _merit2(*t, wlk, bk1, tk, acc)
+                return cF_new <= cF_old - opts.nu * step * ress, t
+
+            lam_t, ZX_t, zs_t = armijo(try_step, opts)
+            nFk_new = torch.linalg.vector_norm(F_of(loop_d, lam_t, ZX_t, zs_t,
+                                                    bk1, wlk))
+            it += 1
+            conv, stag = exit_test(nFk_old, nFk_new, ssn_tol)
+            # A stagnation exit above the tolerance is rejected: in the
+            # marginal tail such sub-tolerance nudges re-excite kkt_l.
+            reject = stag & ~conv
+            lam = torch.where(reject, lam_old, lam_t)
+            ZX = torch.where(reject, ZX_old, ZX_t)
+            zs = torch.where(reject, zs_old, zs_t)
+            counters = count_solve(counters, sol.iters, solver_maxit)
+            ncomp, last = sol.ncomp, sol.last
+            done = bool(fetch(conv | stag)) or it >= opts.ssn_maxit
+        return _Ssn2(lam, ZX, zs, it, *counters, ncomp, last)
+
+    def outer_step(k, X, us, VX, vs, lam, bk, key, kkt0, prev_kkt,
+                   conv_prev=None, record=False):
+        """One APD iteration (``Class2/APD_SsN_Class2.m:95-285``)."""
+        kf2 = torch.full((), float(k * k), dtype=dtype, device=dev)
+        kkt0 = torch.as_tensor(kkt0, dtype=dtype, device=dev)
+        prev_kkt = torch.as_tensor(prev_kkt, dtype=dtype, device=dev)
+        ak, bk1, tk, ssn_tol, WX, ws, wlk, tail = head(
+            loop_d, kf2, X, us, VX, vs, lam, bk, kkt0, prev_kkt)
+        key, sub = jr.split(key)
+        ssn = ssn_solve(WX, ws, wlk, lam, bk1.to(hi), tk, ssn_tol, sub, tail,
+                        conv_prev)
+        if ssn is None:
+            return None
+        X1, us1, VX1, vs1, lam1, bk1, rec = tail_of(
+            loop_d, X, us, lam, ak, bk1, ssn.ZX, ssn.zs, ssn.lam, kkt0,
+            prev_kkt, (ssn.ncomp, ssn.last, ssn.it_min, ssn.it_sum,
+                       ssn.it_max, ssn.fail))
+        rec = StepRecord(ssn.it, rec)
         metrics = (rec if record
                    else read_metrics2(rec.ssn_it, fetch(rec.rec)))
         return X1, us1, VX1, vs1, lam1, bk1, key, metrics
@@ -470,12 +589,15 @@ def solve_class2(prob: Class2Problem, opts: APDOptions | None = None,
     X, us, lam, got = _start2(prob, opts)
     got = fetch(got)
     kkt0 = np.asarray(got[:4])
+    # The restart and tail tests read kkt0 and the previous residuals on
+    # the device.
+    kkt0_d = torch.tensor(kkt0, dtype=torch.float64, device=dev)
     VX, vs = X, us
 
     step = make_class2_step(prob, opts, solver)
     key = jr.PRNGKey(opts.seed)
     bk = torch.ones((), dtype=dtype, device=dev)
-    prev = kkt0
+    prev = kkt0_d
     k_start = 1
     if resume and checkpoint_dir is not None:
         from otamg_torch.diag import checkpoint as ckpt
@@ -483,14 +605,17 @@ def solve_class2(prob: Class2Problem, opts: APDOptions | None = None,
         if ckpt.latest_step(checkpoint_dir) is not None:
             X, us, VX, vs, lam, bk, key, prev, k_start = _resume2(
                 checkpoint_dir, X, us, lam, bk, key, prob.mesh)
+            prev = torch.as_tensor(prev, device=dev)
 
     hist = _History2(kkt0, got[4], verbose)
     converged = polished = False
     k_final = opts.maxit
     for k in range(k_start, opts.maxit + 1):
-        X, us, VX, vs, lam, bk, key, mtr = step(k, X, us, VX, vs, lam, bk,
-                                                key, kkt0, prev)
-        kk = prev = hist.add(k, mtr)
+        X, us, VX, vs, lam, bk, key, rec = step(k, X, us, VX, vs, lam, bk,
+                                                key, kkt0_d, prev,
+                                                record=True)
+        kk = hist.add(k, read_metrics2(rec.ssn_it, fetch(rec.rec)))
+        prev = rec.rec[:4]
         rr = (kk / (1 + kkt0)).max()
         if rr <= opts.kkt_tol:
             converged = True

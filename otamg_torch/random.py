@@ -63,7 +63,13 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 
 def _hash_counts(key: torch.Tensor, count: int):
-    """Hash the 64-bit counters ``0 .. count-1`` under ``key``."""
+    """Hash the 64-bit counters ``0 .. count-1`` under ``key``; one
+    counter under a host key is hashed on Python integers, as
+    :func:`split` hashes."""
+    if count == 1 and not key.is_cuda:
+        k1, k2 = (int(v) for v in key.tolist())
+        return tuple(torch.tensor([v], dtype=torch.int64)
+                     for v in _threefry2x32(k1, k2, 0, 0))
     lo = torch.arange(count, dtype=torch.int64, device=key.device)
     hi = lo >> 32
     return _threefry2x32(key[0], key[1], hi, lo & _MASK)

@@ -42,7 +42,7 @@ def test_split_chain_exact():
     assert np.array_equal(np.asarray(kj, np.int64), kt.numpy())
 
 
-@pytest.mark.parametrize("shape", [(), (7,), (24, 20), (1000,)])
+@pytest.mark.parametrize("shape", [(), (7,), (24, 20), (1000,), (1,)])
 @pytest.mark.parametrize("dtypes", [(jnp.float32, torch.float32),
                                     (jnp.float64, torch.float64)],
                          ids=["f32", "f64"])
