@@ -28,11 +28,15 @@ each per outer iteration and exclusive of the layers nested in it.
 The layers are ``torch.profiler.record_function`` ranges that this
 script installs by wrapping the package's module-level functions where
 the calling modules look them up (the package itself has no ranges):
-``_transform``, ``_component_info``, ``label_propagation``
-(``connected_components_bipartite``), ``setup_solve`` (the hierarchy's
-setup: MIS, coarsening, ``eigh``, and its deep matrix; one CUDA graph
-replay a Newton solve on the chunked and fused drivers), ``deep_matrix``
-(``build_deep``, where it runs eagerly, inside ``setup_solve``),
+``newton_front`` (the Newton solve's front: on the chunked and fused
+drivers one CUDA graph replay a Newton solve, with the copies of its
+inputs; on the loop driver the rest of the front around the ranges
+nested in it), ``_transform``, ``_component_info``,
+``label_propagation`` (``connected_components_bipartite``: one launch of
+the labels kernel), ``setup_solve`` (the hierarchy's setup, MIS,
+coarsening, ``eigh``, and its deep matrix: ``setup_flat``),
+``deep_matrix`` (``build_deep``, where it runs eagerly, inside
+``setup_solve``),
 ``amg_solve``,
 ``he_solve`` (the guess draw and, mixed, the refinement rounds around
 the correction solves), ``build_he_solver`` (the rest of a Newton
@@ -104,7 +108,8 @@ SOLVE_LAYERS = (
     ("otamg_torch.hybrid.solver", "_component_info", "_component_info"),
     ("otamg_torch.hybrid.solver", "connected_components_bipartite",
      "label_propagation"),
-    ("otamg_torch.hybrid.solver", "setup_solve", "setup_solve"),
+    ("otamg_torch.hybrid.solver", "setup_flat", "setup_solve"),
+    ("otamg_torch.hybrid.solver", "newton_front", "newton_front"),
     ("otamg_torch.hybrid.solver", "amg_solve", "amg_solve"),
     ("otamg_torch.opt.apd", "_merit", "merit"),
     ("otamg_torch.opt.apd2", "_merit2", "merit"),

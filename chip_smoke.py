@@ -20,9 +20,10 @@ Phases, each printing one JSON line with its numbers and seconds:
    of the paths, with its time beside the plan's build (``segment_plan``,
    torch ops), the call without a plan and ``index_add_``'s, and the
    pair form ``segment_sum2`` at the bipartite level's halves against
-   the two sums it replaces; then the setup kernels on the first Newton
-   solve of Class-1 500x500 and 1024x1024 (one-iteration loop-driver
-   solves record their inputs): every coarsest capacity of the sizes
+   the two sums it replaces; then the front's kernels on the first Newton
+   solve of Class-1 500x500 and 1024x1024 and Class-2 500x500
+   (one-iteration loop-driver solves record their inputs): every
+   coarsest capacity of the sizes
    solved here within the eigh kernel's shared memory; ``mis_rounds``
    (``csrc/mis.cu``) against its plain version on each level's strength
    graph, on a bail-out case, on synthetic level-1 graphs of 100, 2,048
@@ -35,12 +36,18 @@ Phases, each printing one JSON line with its numbers and seconds:
    191, 256, 400 and 600, where the matrix is in global memory in f64, and
    on a clustered matrix at 123 and 400, to stated tolerances; each
    with ``ms``, ``device_ms``, the bound and the plain version's (and
-   eigh's) time; and the setup itself
-   (``setup_solve``) eagerly under ``torch.cuda.set_sync_debug_mode
-   ("error")``, then captured and replayed, equal to the eager levels bit
-   for bit with no read or sync around the replay, with the eager and
-   replay times (the replay's host time split) and the defect repair's
-   extra device ms;
+   eigh's) time; ``label_rounds`` (``csrc/labels.cu``) against
+   ``label_rounds_plain`` bit for bit, labels and rounds, on the three
+   first Newton masks, the 500 + 500 permuted path at the 64-round cap
+   (3 labels left), random 2,048 and 3,072 (bits in the workspace) masks
+   and an empty and a full mask, each with its layout, rounds, labels
+   left, ``ms``, ``device_ms``, ``host_us``, the plain version's time and
+   the bound; and the Newton solve's front itself (``newton_front``:
+   transform, components, setup) eagerly under
+   ``torch.cuda.set_sync_debug_mode("error")``, then captured and
+   replayed, equal to the eager front bit for bit with no read or sync
+   around the replay, with the eager and replay times (the replay's host
+   time split) and the defect repair's extra device ms;
 4. sparse   — ``amg_solve_matrix`` on the 128x128 grid Laplacian + 0.01 I
    as an ELL ``CSR`` (the path that runs the kernel), 30 iterations, with
    its launches, checked against the same solve through the plain SpMV;
@@ -59,13 +66,14 @@ Phases, each printing one JSON line with its numbers and seconds:
    500x500 once and 1024x1024 once through the chunked driver, each held
    to the JAX package's CPU f64 run (``CLASS2_REF``);
    setup_graph — the chunked (``chunk=8``) and fused drivers, each Newton
-   solve one replay of the setup's CUDA graph and the AMG block's, each
-   SsN step at least one replay of the outer step's regions, beside the
-   loop runs of phases 5 and 6 (the same setup and step, eager): Class-1
-   500x500 chunked twice and fused, 1024x1024 chunked and fused, Class-2
-   500x500 chunked, each bit for bit its loop run's trajectory, with one
-   setup replay a Newton solve, at most one capture a signature (each
-   step region captured by the first run of its signature) and the
+   solve one replay of the front's CUDA graph (transform, components,
+   setup) and the AMG block's, each SsN step at least one replay of the
+   outer step's regions, beside the loop runs of phases 5 and 6 (the
+   same front and step, eager): Class-1 500x500 chunked twice and fused,
+   1024x1024 chunked and fused, Class-2 500x500 chunked, each bit for bit
+   its loop run's trajectory, with one front replay a Newton solve, at
+   most one capture a signature (each step region captured by the first
+   run of its signature), no plain label round on the card, and the
    run's numbers;
 7. mixed    — the same Class-1 and Class-2 solves with
    ``solve_dtype="float32"`` (fp32 AMG hierarchy, exact kernel deflation,
@@ -118,17 +126,20 @@ Phases, each printing one JSON line with its numbers and seconds:
    chunked driver on (e)'s sharded Class-2 problem held to its sharded
    loop run bit for bit, each with its eager and replayed collectives
    (the AMG block's CUDA graph holds the level's NCCL collectives, the
-   setup's graph the gather of ``E``, the step's regions its sums) and
-   graph captures and replays; fails unless a captured block, a captured
-   setup and a captured step region hold a collective, each Newton solve
-   replays one setup and each SsN step the step's regions.
+   front's graph the transform's and the one gather of ``E``, the step's
+   regions its sums) and graph captures and replays; fails unless a
+   captured block, a captured front and a captured step region hold a
+   collective, each Newton solve replays one front and each SsN step
+   the step's regions.
 
-Then one JSON line listing every kernel (``ell_spmv``, ``segment_sum``,
-``mis_rounds`` and ``coarse_eigh``, each with its launches by path), the
-card's name and
-power limit, and the last line ``{"ok": true, "device": {...}}``.  Any failure
-raises and exits nonzero; without CUDA the script exits nonzero before
-printing any result.
+Then a line with each path's ``label_rounds`` launches (fails where a path
+that runs its own front launched none, or any path ran a plain label
+round on the card), one JSON line listing every kernel (``ell_spmv``,
+``segment_sum``, ``mis_rounds``, ``coarse_eigh`` and ``label_rounds``,
+each with its launches by path), the card's name and power limit, and
+the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
+exits nonzero; without CUDA the script exits nonzero before printing
+any result.
 """
 
 from __future__ import annotations
@@ -162,12 +173,14 @@ def emit(phase: str, **kv):
 
 
 def zero_counts():
-    """Set the launch counts of ``segment_sum``, ``mis_rounds`` and
-    ``coarse_eigh`` to 0."""
-    from otamg_torch.amg.kernels import coarse_eigh, mis_rounds
+    """Set the launch counts of ``segment_sum``, ``mis_rounds``,
+    ``coarse_eigh`` and ``label_rounds`` to 0, and the count of plain
+    label-propagation rounds on a card tensor (:func:`count_plain_rounds`)."""
+    from otamg_torch.amg.kernels import coarse_eigh, label_rounds, mis_rounds
     from otamg_torch.sparse.segment import segment_sum
 
     segment_sum.launches = mis_rounds.launches = coarse_eigh.launches = 0
+    label_rounds.launches = count_plain_rounds.calls = 0
 
 
 def counts() -> int:
@@ -178,11 +191,34 @@ def counts() -> int:
 
 
 def setup_counts() -> dict:
-    """The setup kernels' launches since :func:`zero_counts`."""
-    from otamg_torch.amg.kernels import coarse_eigh, mis_rounds
+    """The front's kernels' launches since :func:`zero_counts`, and the
+    plain rounds run on a card tensor (none on any path)."""
+    from otamg_torch.amg.kernels import coarse_eigh, label_rounds, mis_rounds
 
     return dict(mis_rounds=mis_rounds.launches,
-                coarse_eigh=coarse_eigh.launches)
+                coarse_eigh=coarse_eigh.launches,
+                label_rounds=label_rounds.launches,
+                plain_label_rounds_on_card=count_plain_rounds.calls)
+
+
+def count_plain_rounds():
+    """Count the rounds of the plain label-propagation loop that
+    ``connected_components_bipartite`` runs on a card tensor (it runs
+    the kernel there: the count stays 0 on every path) in
+    ``count_plain_rounds.calls``."""
+    from otamg_torch.amg import graph
+
+    plain = graph.label_round
+
+    def counted(has_edge, L):
+        if has_edge.is_cuda:
+            count_plain_rounds.calls += 1
+        return plain(has_edge, L)
+
+    graph.label_round = counted
+
+
+count_plain_rounds.calls = 0
 
 
 class SyncCount:
@@ -713,15 +749,16 @@ def path_state() -> dict:
     """The counters a run's numbers are taken from (host reads, the
     setup's stats, the CUDA graphs' captures and replays, the kernels'
     launches)."""
-    from otamg_torch.amg.hierarchy import amg_graphs, setup_graphs, setup_stats
+    from otamg_torch.amg.hierarchy import amg_graphs, setup_stats
     from otamg_torch.device import fetch
+    from otamg_torch.hybrid.solver import front_graphs
     from otamg_torch.opt.regions import step_graphs
 
     setups, repairs, rounds, bails = setup_stats.read()
     return dict(reads=fetch.reads, setups=setups, repairs=repairs,
                 rounds=rounds, bails=bails,
-                setup_captures=setup_graphs.captures,
-                setup_replays=setup_graphs.replays,
+                front_captures=front_graphs.captures,
+                front_replays=front_graphs.replays,
                 amg_captures=amg_graphs.captures,
                 amg_replays=amg_graphs.replays,
                 step_captures=step_graphs.captures,
@@ -738,7 +775,8 @@ def run_numbers(res, before, sync, secs) -> dict:
     seconds: per outer iteration the host reads (``fetch``), all syncs
     and the syncs besides the reads (copies from pageable memory and
     other hidden syncs, with their top sites); per Newton solve the
-    setup's CUDA graph replays, the AMG block's, the defect repairs; per
+    front's CUDA graph replays (transform, components and setup), the
+    AMG block's, the defect repairs; per
     SsN step (one Newton solve each) the outer step's region replays;
     the MIS rounds per setup; the kernels' launches."""
     d = {k: v - before[k] for k, v in path_state().items()}
@@ -751,8 +789,8 @@ def run_numbers(res, before, sync, secs) -> dict:
         other_syncs_per_outer_iter=(sync.total - d["reads"]) / iters,
         other_sync_sites={k: v for k, v in sync.sites.most_common(8)
                           if not k.startswith("device.py")},
-        setup_captures=d["setup_captures"],
-        setup_replays_per_newton_solve=d["setup_replays"] / newton,
+        front_captures=d["front_captures"],
+        front_replays_per_newton_solve=d["front_replays"] / newton,
         amg_captures=d["amg_captures"],
         amg_replays_per_newton_solve=d["amg_replays"] / newton,
         step_captures=d["step_captures"],
@@ -762,7 +800,8 @@ def run_numbers(res, before, sync, secs) -> dict:
         mis_rounds_per_setup=d["rounds"] / max(d["setups"], 1),
         mis_bails=d["bails"],
         launches={k: d[k] for k in ("segment_sum", "mis_rounds",
-                                    "coarse_eigh")})
+                                    "coarse_eigh", "label_rounds",
+                                    "plain_label_rounds_on_card")})
 
 
 def run_class1(m, n, dev, opts, solve=None):
@@ -840,9 +879,11 @@ def phase_class1(dev):
         warm = (res, secs, reads, dict(LAST))
         emit("class1_500", run=label, **LAST,
              **held_to_class1_reference(500, res))
-    if not all(launches.values()):
-        raise AssertionError(f"the Class-1 solve left a kernel unlaunched: "
-                             f"{launches}")
+    plain = launches["plain_label_rounds_on_card"]
+    if plain or not all(v for k, v in launches.items()
+                        if k != "plain_label_rounds_on_card"):
+        raise AssertionError(f"the Class-1 solve left a kernel unlaunched or "
+                             f"ran plain label rounds: {launches}")
     res, secs, reads = run_class1(1024, 1024, dev, opts)
     loop1024 = (res, secs, reads, dict(LAST))
     emit("class1_1024", **LAST, **held_to_class1_reference(1024, res))
@@ -1009,17 +1050,18 @@ def held_to_reference(size, res):
 class Recorder:
     """Inside a ``with`` block, the inputs of the first ``mis_rounds``
     call of each size (``mis``), the first ``coarse_eigh`` call of each
-    size (``eigh``) and the first ``setup_solve`` call (``setup``: args
-    and keywords), cloned, where the package's modules look them up."""
+    size (``eigh``), the first ``label_rounds`` call's mask (``mask``)
+    and the first ``newton_front`` call (``setup``: args and keywords),
+    cloned, where the package's modules look them up."""
 
     def __enter__(self):
         from otamg_torch.amg import graph, hierarchy
         from otamg_torch.hybrid import solver
 
-        self.mis, self.eigh, self.setup = {}, {}, []
+        self.mis, self.eigh, self.setup, self.mask = {}, {}, [], []
         self.saved = [(graph, "mis_rounds"), (hierarchy, "coarse_eigh"),
-                      (solver, "setup_solve")]
-        mis, eigh, setup = (getattr(m, a) for m, a in self.saved)
+                      (solver, "newton_front"), (graph, "label_rounds")]
+        mis, eigh, setup, labels = (getattr(m, a) for m, a in self.saved)
         keep = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
 
         def mis_rec(*a, **kw):
@@ -1035,10 +1077,16 @@ class Recorder:
                 self.setup.append((tuple(map(keep, a)), dict(kw)))
             return setup(*a, **kw)
 
+        def labels_rec(E, *a, **kw):
+            if not self.mask:
+                self.mask.append(E.clone())
+            return labels(E, *a, **kw)
+
         self.saved = [(m, a, getattr(m, a)) for m, a in self.saved]
         graph.mis_rounds = mis_rec
         hierarchy.coarse_eigh = eigh_rec
-        solver.setup_solve = setup_rec
+        solver.newton_front = setup_rec
+        graph.label_rounds = labels_rec
         return self
 
     def __exit__(self, *exc):
@@ -1353,42 +1401,46 @@ def ideal_branch_ms(dense, dev):
     return out
 
 
-def setup_checks(dev, recs):
-    """The first Newton solve's setup (``setup_solve``'s recorded
-    arguments) at 500^2 and 1024^2: eagerly under
-    ``torch.cuda.set_sync_debug_mode("error")`` (no sync at all), then
-    captured and replayed, equal to the eager levels and deep matrix bit
-    for bit with no host read or sync around the replay; the eager
-    setup's wall ms, the replay's wall and device ms, the replay's host
-    microseconds (the draws' hashing, the graph launch, the whole call),
-    and the defect repair's extra device ms per Newton solve
-    (:func:`ideal_branch_ms`) beside the replay's."""
+def front_checks(dev, recs):
+    """The first Newton solve's front (``newton_front``'s recorded
+    arguments: transform, components, setup) at 500^2 and 1024^2:
+    eagerly under ``torch.cuda.set_sync_debug_mode("error")`` (no sync at
+    all), then captured and replayed, equal to the eager front (every
+    tensor, the levels and the deep matrix) bit for bit with no host
+    read or sync around the replay; the eager front's wall ms, the
+    replay's wall and device ms, the replay's host microseconds (the
+    draws' hashing, the graph launch, the whole call), and the defect
+    repair's extra device ms per Newton solve (:func:`ideal_branch_ms`)
+    beside the replay's."""
     from otamg_torch import random as jr
     from otamg_torch.amg import hierarchy
     from otamg_torch.device import fetch
+    from otamg_torch.hybrid import solver
 
     rows = {}
     for size, rec in recs.items():
-        args, kw = rec.setup[0]
-        kw = {k: v for k, v in kw.items() if k != "captured"}
+        # S, tvec, bk1, tk, p, q, opts, key and the solve dtype.
+        args = rec.setup[0][0][:9]
+        front = lambda k=1: solver.newton_front(*args, exit_every=k)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            eager = hierarchy.setup_solve(*args, **kw)
+            eager = front()
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        hierarchy.setup_graphs.clear()
+        solver.front_graphs.clear()
         for _ in range(2):
             reads0 = fetch.reads
             with SyncCount() as sync:
-                got = hierarchy.setup_solve(*args, **kw, captured=True)
+                got = front(8)
             reads = fetch.reads - reads0
-        flat = lambda h: [t for lv in (h[0], *h[1]) for t in
-                          hierarchy._leaves(lv)] + [h[2]]
+        flat = lambda fr: [*fr[:9], *(t for lv in (fr.lv1, *fr.dense)
+                                      for t in hierarchy._leaves(lv)),
+                           fr.deep]
         equal = all(torch.equal(a, b) for a, b in zip(flat(got),
                                                       flat(eager)))
-        blk = next(iter(hierarchy.setup_graphs.blocks.values()))
+        blk = next(iter(solver.front_graphs.blocks.values()))
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         for _ in range(10):
@@ -1396,32 +1448,113 @@ def setup_checks(dev, recs):
         ev[1].record()
         ev[1].synchronize()
         replay_device = ev[0].elapsed_time(ev[1]) / 10
-        ideal = ideal_branch_ms(eager[1], dev)
-        levels = [lv.A.shape[0] for lv in eager[1]]
+        ideal = ideal_branch_ms(eager.dense, dev)
+        levels = [lv.A.shape[0] for lv in eager.dense]
         # The replay's host time, split: the draws' hashing, the graph
         # launch alone, the whole call.
-        host = dict(draws_us=host_us(lambda: jr.setup_draws(args[6],
+        host = dict(draws_us=host_us(lambda: jr.setup_draws(args[7],
                                                             levels[:-1]), 20),
                     graph_launch_us=host_us(blk.graph.replay, 20),
-                    call_us=host_us(lambda: hierarchy.setup_solve(
-                        *args, **kw, captured=True), 20))
+                    call_us=host_us(lambda: front(8), 20))
         row = dict(size=size, levels=levels, replay_host=host,
                    equal_to_eager=equal, reads_around_replay=reads,
                    syncs_around_replay=sync.total,
-                   eager_ms=cuda_ms(lambda: hierarchy.setup_solve(
-                       *args, **kw), 5),
-                   replay_ms=cuda_ms(lambda: hierarchy.setup_solve(
-                       *args, **kw, captured=True), 10),
+                   ncomp=int(eager.ncomp), last=int(eager.last),
+                   eager_ms=cuda_ms(front, 5),
+                   replay_ms=cuda_ms(lambda: front(8), 10),
                    replay_device_ms=replay_device,
                    ideal_branch_ms_by_level=ideal,
                    ideal_branch_ms=sum(ideal),
                    ideal_share_of_replay=sum(ideal) / replay_device)
-        emit("setup_capture", **row)
+        emit("front_capture", **row)
         if not (equal and reads == 0 and sync.total == 0):
-            raise AssertionError(f"the captured {size}x{size} setup differs "
+            raise AssertionError(f"the captured {size}x{size} front differs "
                                  "from the eager one or syncs")
         rows[size] = row
-    hierarchy.setup_graphs.clear()
+    solver.front_graphs.clear()
+    return rows
+
+
+# The method's integer operations a round: a minimum for each edge in
+# each hook and the two jumps' gathers, at the 32-bit logic rate.
+def label_bound(card, E, rounds):
+    """(bound ms, bound_by): E read once, the labels and the round count
+    written once; ``rounds`` x (2 nnz + 2 N) integer operations."""
+    from otamg_torch.diag.roofline import hbm_rate
+
+    m, n = E.shape
+    N = n + m
+    t_bytes = (m * n * E.element_size() + 8 * N + 4) / hbm_rate(card)
+    t_ops = rounds * (2 * int((E != 0).sum()) + 2 * N) / _WORD_RATE
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def permuted_path(k, seed=0):
+    """A bipartite path of ``k`` columns and ``k`` rows, column ``t`` -
+    row ``t`` - column ``t + 1``, with the column and row indices
+    randomly permuted (numpy ``default_rng(seed)``, the columns'
+    permutation drawn first); the same as
+    ``tests/test_torch_components.py``'s."""
+    rng = np.random.default_rng(seed)
+    pc, pr = rng.permutation(k), rng.permutation(k)
+    E = np.zeros((k, k))
+    E[pr, pc] = 1.0
+    E[pr[:-1], pc[1:]] = 1.0
+    return E
+
+
+# The random masks' sizes and densities (a few edges a node: many
+# components, several rounds); 3,072 keeps its bits in the workspace.
+LABEL_RANDOM = ((2048, 0.0015), (3072, 0.001))
+
+
+def label_checks(card, dev, masks):
+    """``label_rounds`` against ``label_rounds_plain`` on the card, bit
+    for bit (labels and rounds): on the first Newton masks of the paths
+    (``masks``: name -> E), the 500 + 500 permuted path at the 64-round
+    cap (3 labels left), the random masks of :data:`LABEL_RANDOM`, an
+    empty and a full 500 x 500 mask; each with its layout, rounds,
+    labels left, times and bound."""
+    from otamg_torch.amg.kernels import (label_layout, label_rounds,
+                                         label_rounds_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cases = dict(masks)
+    cases["path_500"] = torch.as_tensor(permuted_path(500), device=dev)
+    for k, d in LABEL_RANDOM:
+        cases[f"random_{k}"] = (torch.rand(k, k, generator=gen, device=dev)
+                                < d).to(torch.float64)
+    cases["empty_500"] = torch.zeros(500, 500, dtype=torch.float64,
+                                     device=dev)
+    cases["full_500"] = torch.ones(500, 500, dtype=torch.float64, device=dev)
+    rows = {}
+    for name, E in cases.items():
+        k = label_rounds(E)
+        p = label_rounds_plain(E != 0)
+        torch.cuda.synchronize()
+        equal = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        m, n = E.shape
+        rounds = int(k[1])
+        bound_ms, bound_by = label_bound(card, E, rounds)
+        ms = cuda_ms(lambda: label_rounds(E))
+        row = dict(shape=name, m=m, n=n, dtype=str(E.dtype).split(".")[-1],
+                   layout=label_layout(m, n)[0], rounds=rounds,
+                   labels_left=int(torch.unique(k[0]).numel()),
+                   edges=int((E != 0).sum()), equal_to_plain=equal,
+                   max_abs_err=float((k[0] - p[0]).abs().max()), ms=ms,
+                   device_ms=graph_ms(lambda: label_rounds(E)),
+                   host_us=host_us(lambda: label_rounds(E)),
+                   plain_ms=cuda_ms(lambda: label_rounds_plain(E != 0), 10),
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / ms)
+        emit("label_rounds", **row)
+        capped = name != "path_500" or (rounds == 64
+                                         and row["labels_left"] == 3)
+        if not (equal and capped):
+            raise AssertionError(f"label_rounds {name} differs from its plain "
+                                 "version (or the path missed the cap)")
+        rows[name] = row
     return rows
 
 
@@ -1430,10 +1563,11 @@ SETUP_SIZES = (500, 1024)
 
 
 def phase_setup_kernels(card, dev):
-    """The setup kernels and the setup's CUDA graph on the first Newton
-    solve of Class-1 500^2 and 1024^2: a one-iteration loop-driver solve
-    of each records the inputs (:class:`Recorder`), then
-    :func:`mis_checks`, :func:`eigh_checks` and :func:`setup_checks`."""
+    """The front's kernels and its CUDA graph on the first Newton solve
+    of Class-1 500^2 and 1024^2 and, for the labels, Class-2 500^2: a
+    one-iteration loop-driver solve of each records the inputs
+    (:class:`Recorder`), then :func:`mis_checks`, :func:`eigh_checks`,
+    :func:`label_checks` and :func:`front_checks`."""
     caps = setup_sizes_checked()
     recs = {}
     for size in SETUP_SIZES:
@@ -1441,12 +1575,16 @@ def phase_setup_kernels(card, dev):
             run_class1(size, size, dev, dataclasses.replace(class1_opts(),
                                                             maxit=1))
         recs[size] = rec
+    with Recorder() as rec2:
+        run_class2(500, 500, dev, dataclasses.replace(class2_opts(), maxit=1))
     coarsest = {size: sorted(rec.eigh) for size, rec in recs.items()}
     if coarsest != {size: [caps[size]] for size in SETUP_SIZES}:
         raise AssertionError(f"coarsest levels {coarsest}, capacity "
                              f"schedule {caps}")
+    masks = {f"class1_{size}": rec.mask[0] for size, rec in recs.items()}
+    masks["class2_500"] = rec2.mask[0]
     return (mis_checks(card, dev, recs), eigh_checks(card, dev, recs),
-            setup_checks(dev, recs))
+            label_checks(card, dev, masks), front_checks(dev, recs))
 
 
 def same_run(res, base) -> bool:
@@ -1459,20 +1597,22 @@ def same_run(res, base) -> bool:
 
 def phase_setup_graph(dev, loops):
     """The chunked (``chunk=8``) and fused drivers, whose Newton solves
-    replay the setup's CUDA graph and the AMG block's, beside the loop
-    driver's runs of phases 5 and 6 (``loops``: (class, size) -> (result,
-    seconds, reads, numbers)), which run the same setup eagerly: Class-1
+    replay the front's CUDA graph (transform, components, setup) and the
+    AMG block's, beside the loop driver's runs of phases 5 and 6
+    (``loops``: (class, size) -> (result, seconds, reads, numbers)), which
+    run the same front eagerly: Class-1
     500^2 chunked twice (the first captures) and fused, 1024^2 chunked
     and fused, Class-2 500^2 chunked.  Each held bit for bit to its loop
     run (iterations, failures, SsN steps, every objective) and to its
-    reference, with one setup replay and at least one AMG block replay per
-    Newton solve, exactly one setup capture and one AMG block capture per
+    reference, with one front replay and at least one AMG block replay per
+    Newton solve, exactly one front capture and one AMG block capture per
     signature (the runs of one class and size share both), at least one
     replay of the outer step's regions per SsN step, each region
     captured by the first run of its signature only (chunk 8 and the
     fused driver share it), and at most half the loop's host reads per
     outer iteration (Class 2: fewer).  Returns each run's launches."""
-    from otamg_torch.amg.hierarchy import amg_graphs, setup_graphs
+    from otamg_torch.amg.hierarchy import amg_graphs
+    from otamg_torch.hybrid.solver import front_graphs
     from otamg_torch.opt import (solve_class1_chunked, solve_class1_fused,
                                  solve_class2_chunked)
     from otamg_torch.opt.regions import step_graphs
@@ -1480,10 +1620,10 @@ def phase_setup_graph(dev, loops):
     chunked1 = lambda p, o: solve_class1_chunked(p, o, chunk=8)
     chunked2 = lambda p, o: solve_class2_chunked(p, o, chunk=8)
     amg_graphs.clear()
-    setup_graphs.clear()
+    front_graphs.clear()
     step_graphs.clear()
     launches = {}
-    # (class, size) -> [setup captures, AMG block captures, the step's
+    # (class, size) -> [front captures, AMG block captures, the step's
     # region captures by run]
     captures = {}
     runs = ((1, 500, "chunked", chunked1), (1, 500, "chunked_warm", chunked1),
@@ -1509,28 +1649,29 @@ def phase_setup_graph(dev, loops):
         few_reads = (reads <= base_reads / 2 if cls == 1
                      else reads < base_reads)
         got = captures.setdefault((cls, size), [0, 0, []])
-        got[0] += nums["setup_captures"]
+        got[0] += nums["front_captures"]
         got[1] += nums["amg_captures"]
         got[2].append(nums["step_captures"])
         if not (row["same_as_loop"] and few_reads
-                and nums["setup_replays_per_newton_solve"] == 1.0
+                and nums["front_replays_per_newton_solve"] == 1.0
                 and nums["amg_replays_per_newton_solve"] >= 1.0
                 and nums["step_replays_per_ssn_step"] >= 1.0
-                and nums["setups"] == nums["newton_solves"]):
+                and nums["setups"] == nums["newton_solves"]
+                and nums["launches"]["plain_label_rounds_on_card"] == 0):
             raise AssertionError(f"Class-{cls} {size}x{size} {name} driver "
                                  "differs from the loop driver or does not "
-                                 "replay one setup and the AMG block a "
+                                 "replay one front and the AMG block a "
                                  "Newton solve and the step's regions an "
                                  "SsN step")
-    emit("setup_graph_caches", setup_captures=setup_graphs.captures,
-         setup_replays=setup_graphs.replays, amg_captures=amg_graphs.captures,
+    emit("setup_graph_caches", front_captures=front_graphs.captures,
+         front_replays=front_graphs.replays, amg_captures=amg_graphs.captures,
          amg_replays=amg_graphs.replays, step_captures=step_graphs.captures,
          step_replays=step_graphs.replays,
          step_regions=sorted({name for _, name in step_graphs.blocks}),
          captures_by_run={f"class{c}_{n}": v for (c, n), v in captures.items()})
     if any(v[:2] != [1, 1] or not v[2][0] or any(v[2][1:])
            for v in captures.values()):
-        raise AssertionError(f"not one setup, one AMG block and one capture "
+        raise AssertionError(f"not one front, one AMG block and one capture "
                              f"of each step region per signature: {captures}")
     return launches
 
@@ -2105,11 +2246,13 @@ def dist_blocked_checks(dev, mesh, loops):
     block's, the setup's and the outer step's regions'), and
     ``segment_sum`` launches.  Fails unless a captured AMG block holds a
     collective and is replayed, unless each Newton solve replays one
-    captured setup, whose graph holds the gather of ``E``, and unless
+    captured front, whose graph holds the transform's collectives and
+    the one gather of ``E`` (for the labels and the setup), and unless
     each SsN step replays the step's regions, whose graphs hold the
     step's collectives."""
-    from otamg_torch.amg.hierarchy import amg_graphs, setup_graphs
+    from otamg_torch.amg.hierarchy import amg_graphs
     from otamg_torch.dist import shard_class2
+    from otamg_torch.hybrid.solver import front_graphs
     from otamg_torch.opt import (solve_class1_chunked, solve_class1_fused,
                                  solve_class2_chunked)
     from otamg_torch.opt.regions import step_graphs
@@ -2127,7 +2270,7 @@ def dist_blocked_checks(dev, mesh, loops):
                 256, 256, dev, o2, lambda p, o: solve_class2_chunked(
                     shard_class2(p, mesh), o, chunk=8))))
     amg_graphs.clear()
-    setup_graphs.clear()
+    front_graphs.clear()
     step_graphs.clear()
     spmv, seg, setupk = {}, {}, {}
     for cls, name, run in runs:
@@ -2148,10 +2291,10 @@ def dist_blocked_checks(dev, mesh, loops):
                    replays_per_newton_solve=(amg_graphs.replays - replays0)
                    / newton,
                    graph_collectives=amg_graphs.captured_collectives,
-                   setup_captures=LAST["setup_captures"],
-                   setup_replays_per_newton_solve=LAST[
-                       "setup_replays_per_newton_solve"],
-                   setup_graph_collectives=setup_graphs.captured_collectives,
+                   front_captures=LAST["front_captures"],
+                   front_replays_per_newton_solve=LAST[
+                       "front_replays_per_newton_solve"],
+                   front_graph_collectives=front_graphs.captured_collectives,
                    step_captures=LAST["step_captures"],
                    step_replays=LAST["step_replays"],
                    step_replays_per_ssn_step=LAST[
@@ -2168,18 +2311,23 @@ def dist_blocked_checks(dev, mesh, loops):
         if cls == 1:
             row.update(held_to_class1_reference(500, res))
         emit(f"dist_{name}_class{cls}_{500 if cls == 1 else 256}", **row)
-        if not (row["same_as_loop"] and n_seg and row["replays"] > 0
+        # A run that replays the front and the AMG block an earlier run
+        # captured launches its segment sums inside those replays.
+        if not (row["same_as_loop"] and (n_seg or not row["front_captures"])
+                and row["replays"] > 0
                 and counted_launches.replayed > 0
-                and row["setup_replays_per_newton_solve"] == 1.0
-                and row["step_replays_per_ssn_step"] >= 1.0):
+                and row["front_replays_per_newton_solve"] == 1.0
+                and row["step_replays_per_ssn_step"] >= 1.0
+                and counted_launches.setup["plain_label_rounds_on_card"]
+                == 0):
             raise AssertionError(f"sharded Class-{cls} {name} driver differs "
                                  "from the sharded loop run, replayed no "
-                                 "collective, not one setup a Newton solve "
+                                 "collective, not one front a Newton solve "
                                  "or not the step's regions an SsN step")
     if not (amg_graphs.captured_collectives
-            and setup_graphs.captured_collectives
+            and front_graphs.captured_collectives
             and step_graphs.captured_collectives):
-        raise AssertionError("no captured AMG block, setup or step region "
+        raise AssertionError("no captured AMG block, front or step region "
                              "holds a collective")
     return spmv, seg, setupk
 
@@ -2311,6 +2459,13 @@ def phase_roofline(card, res, secs):
          **roofline_report(model, secs, torch.device("cuda")))
 
 
+# The paths whose runs launch the labels kernel themselves.
+LABEL_PATHS = ("class1", "class2", "mixed", "class1_500_chunked",
+               "class1_1024_chunked", "class2_500_chunked", "dist_class1",
+               "dist_class1_explicit", "dist_class2", "dist_class1_chunked",
+               "dist_class2_chunked")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2330,11 +2485,12 @@ def main() -> int:
 
     build_s = cuda_build.build_all(verbose=True)
     emit("build", seconds=build_s)
+    count_plain_rounds()
 
     t0 = time.perf_counter()
     rows = phase_kernels(card, dev)
     seg_rows = phase_segment_sum(card, dev)
-    mis_rows, eigh_rows, _ = phase_setup_kernels(card, dev)
+    mis_rows, eigh_rows, label_rows, _ = phase_setup_kernels(card, dev)
     emit("kernel_checks", seconds=time.perf_counter() - t0)
     # Each path's launches: counts set to 0 just before it, read after.
     seg, setupk = {}, {}
@@ -2359,7 +2515,9 @@ def main() -> int:
                                              (2, 500): warm2})
     for name, n in graph_launches.items():
         seg[name] = n["segment_sum"]
-        setupk[name] = {k: n[k] for k in ("mis_rounds", "coarse_eigh")}
+        setupk[name] = {k: n[k] for k in ("mis_rounds", "coarse_eigh",
+                                          "label_rounds",
+                                          "plain_label_rounds_on_card")}
     emit("setup_graph", seconds=time.perf_counter() - t0)
     f64 = {(1,) + k: v for k, v in runs1.items()}
     f64.update({(2,) + k: v for k, v in runs2.items()})
@@ -2384,10 +2542,24 @@ def main() -> int:
     setupk.update(dist_setupk)
     emit("dist_all", seconds=time.perf_counter() - t0)
 
+    # Every path of the Newton solve launched the labels kernel (the
+    # fused and warm blocked runs replay the front their chunked run
+    # captured, kernel and all), and no path ran the plain rounds on the
+    # card.
+    unlabelled = [k for k in LABEL_PATHS if not setupk[k]["label_rounds"]]
+    plain = {k: v["plain_label_rounds_on_card"] for k, v in setupk.items()
+             if v["plain_label_rounds_on_card"]}
+    emit("label_rounds_paths", launches={k: v["label_rounds"]
+                                         for k, v in setupk.items()},
+         unlabelled=unlabelled, plain_rounds_on_card=plain)
+    if unlabelled or plain:
+        raise AssertionError(f"paths without a label_rounds launch "
+                             f"{unlabelled} or with plain rounds {plain}")
     main_row = rows[("grid128", torch.float64)]
     seg_row = seg_rows["components1000_L500"]
     mis_row = mis_rows["class1_500_c500"]
     eigh_row = eigh_rows[("coarsest level", 123, torch.float64)]
+    label_row = label_rows["class1_500"]
     print(json.dumps({"kernels": [{
         "name": "ell_spmv", "route": "cuda",
         "source": "otamg_torch/csrc/ell_spmv.cu",
@@ -2435,7 +2607,18 @@ def main() -> int:
         "bound_by": eigh_row["bound_by"],
         "library_ms": eigh_row["library_ms"],
         "device_ms": eigh_row["device_ms"], "n": eigh_row["n"],
-        "dtype": eigh_row["dtype"]}]}))
+        "dtype": eigh_row["dtype"]}, {
+        "name": "label_rounds", "route": "cuda",
+        "source": "otamg_torch/csrc/labels.cu",
+        "replaces": "otamg/amg/graph.py:64 (the lax.while_loop of "
+                    "connected_components_bipartite; no Pallas kernel)",
+        "launches": setupk["class1"]["label_rounds"],
+        "launches_by_path": {k: v["label_rounds"] for k, v in setupk.items()},
+        "max_abs_err": label_row["max_abs_err"], "ms": label_row["ms"],
+        "plain_ms": label_row["plain_ms"], "bound_ms": label_row["bound_ms"],
+        "bound_by": label_row["bound_by"], "library_ms": None,
+        "device_ms": label_row["device_ms"], "shape": label_row["shape"],
+        "rounds": label_row["rounds"]}]}))
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

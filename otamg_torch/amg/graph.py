@@ -2,7 +2,9 @@
 
 * :func:`connected_components_bipartite` — min-label propagation with
   pointer jumping on the bipartite edge mask (replaces ``dmperm``,
-  ``components.m:36``).
+  ``components.m:36``); on a card one launch of the ``labels`` kernel
+  (:func:`otamg_torch.amg.kernels.label_rounds`) that reads nothing on
+  the host.
 * :func:`strength_dense` — ``AMG/strength.m`` (symmetrized case 2) on a
   capacity-padded dense matrix with an activity mask.
 * :func:`mis_dense` — the approximate-MIS C/F splitting of
@@ -10,13 +12,14 @@
   ``mis`` kernel on a card (:func:`otamg_torch.amg.kernels.mis_rounds`)
   and read nothing on the host.
 
-Label propagation reads one flag from the device per block of
-``exit_every`` rounds (1: every round).  Rounds past the exit inside a
-block change nothing (label propagation is at its fixpoint), so the
+On the CPU label propagation reads one flag from the device per block
+of ``exit_every`` rounds (1: every round).  Rounds past the exit inside
+a block change nothing (label propagation is at its fixpoint), so the
 block size never changes the result.  Under a mesh the flag is
-replicated: it comes from labels reduced over the ranks (a minimum and a
-gather), so every rank leaves the loop after the same block and makes
-the same collectives.  The random draws are :mod:`otamg_torch.random`'s,
+replicated there: it comes from labels reduced over the ranks (a
+minimum and a gather in every round), so every rank leaves the loop
+after the same block and makes the same collectives.  On a card every
+rank gathers the mask once and runs the kernel on the whole of it.  The random draws are :mod:`otamg_torch.random`'s,
 so the port picks the same coarse points as the JAX package from the
 same key.
 :func:`segment_sum` is :func:`otamg_torch.sparse.segment.segment_sum`,
@@ -30,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from otamg_torch import random as jr
-from otamg_torch.amg.kernels import mis_rounds
+from otamg_torch.amg.kernels import label_round, label_rounds, mis_rounds
 from otamg_torch.device import fetch
 from otamg_torch.dist import api
 from otamg_torch.sparse.segment import segment_sum  # noqa: F401
@@ -44,11 +47,15 @@ def connected_components_bipartite(E_mask: torch.Tensor,
 
     Columns are nodes ``0..n-1``, rows ``n..n+m-1``.  Returns an
     ``(n + m,)`` int64 tensor; each label is the smallest node index in
-    its component.  The rounds run in blocks of ``exit_every`` with one
-    read each: a round at the fixpoint leaves the labels as they are.
-    Under a mesh ``E_mask`` is this rank's rows and the labels are
+    its component.  On a card the rounds are one :func:`label_rounds`
+    launch on the whole mask (gathered once under a mesh), whatever
+    ``exit_every``.  On the CPU they run in blocks of ``exit_every`` with
+    one read each: a round at the fixpoint leaves the labels as they
+    are.  Under a mesh ``E_mask`` is this rank's rows and the labels are
     replicated (:func:`label_round`).
     """
+    if E_mask.is_cuda:
+        return label_rounds(api.all_gather_rows(E_mask), max_rounds)[0]
     has_edge = E_mask != 0
     n = E_mask.shape[1]
     m = api.global_rows(E_mask)
@@ -63,26 +70,6 @@ def connected_components_bipartite(E_mask: torch.Tensor,
         if not fetch(changed):
             break
     return L
-
-
-def label_round(has_edge: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """One round of :func:`connected_components_bipartite`: hook each
-    node to its smallest neighbour label, then jump pointers twice.
-    Under a mesh the row minimum is local (then gathered) and the column
-    minimum a minimum over the ranks; the jumps run on the replicated
-    labels."""
-    n = has_edge.shape[1]
-    N = L.shape[0]
-    lc, lr = L[:n], api.local_rows(L[n:])
-    # Hook: pull the minimum neighbour label across the edges.
-    lr2 = torch.minimum(lr, torch.where(has_edge, lc[None, :],
-                                        N).amin(dim=1))
-    lc2 = torch.minimum(lc, api.pmin(torch.where(has_edge, lr2[:, None],
-                                                 N).amin(dim=0)))
-    L2 = torch.cat([lc2, api.all_gather_rows(lr2)])
-    # Compress: pointer-jump twice so label chains halve each round.
-    L2 = L2[L2]
-    return L2[L2]
 
 
 def component_stats(labels: torch.Tensor, weights: torch.Tensor):

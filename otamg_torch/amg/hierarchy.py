@@ -28,11 +28,12 @@
   one kernel launch, the defect repair builds both interpolations and
   selects, and the coarsest eigendecomposition is a kernel whose
   ``info`` stays on the card (:mod:`otamg_torch.amg.kernels`).  So on a
-  card :func:`setup_solve` can capture the setup and its deep matrix as
-  one CUDA graph per signature (:data:`setup_graphs`), replayed once a
-  Newton solve by the chunked and fused drivers; the loop driver runs
-  the same code eagerly.  The generic and sparse-setup hierarchies keep
-  their host reads.
+  card the setup and its deep matrix (:func:`setup_flat`) are captured
+  with the rest of the Newton solve's front as one CUDA graph per
+  signature (``otamg_torch.hybrid.solver.newton_front``), replayed once
+  a Newton solve by the chunked and fused drivers; the loop driver runs
+  the same code eagerly (:func:`setup_solve`).  The generic and
+  sparse-setup hierarchies keep their host reads.
 
 * **The deflated cycle** (``deflated=True``) serves the correction
   solves of the mixed-precision Newton solver: instead of solving for the
@@ -466,14 +467,16 @@ def _scalar(x, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
-def _setup_levels(E, g, inv_tk, labels, nsp, opts: AMGOptions, draws, gk):
+def _setup_levels(E, g, inv_tk, labels, nsp, opts: AMGOptions, draws, gk,
+                  E_all=None):
     """:func:`setup_hierarchy` from its staged draws (the flat f32 tensor
     of :func:`otamg_torch.random.setup_draws` on ``E``'s device) and a
     0-d ``inv_tk``: ``(lv1, dense_levels, stats)``, ``stats`` the int64
     ``(3,)`` count of defect repairs, MIS rounds and MIS bail-outs.  No
-    host read on a card."""
+    host read on a card.  ``E_all`` is the whole ``E`` where the caller
+    gathered it already (gathered here otherwise)."""
     E_rows = E
-    E = api.all_gather_rows(E)
+    E = api.all_gather_rows(E) if E_all is None else E_all
     m, n = E.shape
     N = n + m
     dtype = E.dtype
@@ -1153,8 +1156,6 @@ def _solve_step(cycle, mv0, lv1, dense, deep_D, b, safe0, retol_eff: float,
 
 
 amg_graphs = GraphCache()
-# The Newton solve's setup (setup_solve), one graph per setup_signature.
-setup_graphs = GraphCache()
 
 
 class SetupStats:
@@ -1316,68 +1317,63 @@ def amg_solve(lv1, dense: Sequence[DenseLevel], b: torch.Tensor,
     return AMGSolveResult(x, it, rel)
 
 
-def setup_signature(inputs, opts: AMGOptions, deflated: bool,
-                    mesh=None) -> tuple:
-    """The key of a captured setup: the shapes, dtypes and devices of its
-    inputs (``E``, ``g``, ``inv_tk``, ``labels``, ``nsp``, ``gk`` and the
-    draws; the solve dtype is ``E``'s), the options (``fuse_deep`` among
-    them), ``deflated`` (the deep matrix's cycle) and the live mesh."""
-    where = (None if mesh is None
-             else (mesh.group, mesh.rank, mesh.size))
-    return (tuple((tuple(t.shape), t.dtype, t.device) for t in inputs),
-            opts, deflated, where)
-
-
-def setup_solve(E, g, inv_tk, labels, nsp, opts: AMGOptions,
-                key: torch.Tensor, gk, deflated: bool = False,
-                captured: bool = False):
-    """The hierarchy of :func:`setup_hierarchy` and the deep matrix of
-    ``opts.fuse_deep`` for :func:`amg_solve` (``deep=``) with
-    ``deflated``: ``(lv1, dense, deep_D)``, ``deep_D`` None without a
-    fused deep tape.  Every draw of the setup is made beforehand from
-    ``key`` (:func:`otamg_torch.random.setup_draws`) and copied to the
-    card without blocking the host; the setup itself reads nothing on
-    the host.  With ``captured`` on a card the whole setup is one CUDA
-    graph (:data:`setup_graphs`), captured at the first solve of its
-    :func:`setup_signature` and replayed for every later one: the
-    levels are then the graph's outputs, written anew by the next
-    replay.  Under a live mesh the gather of ``E`` is captured with it.
-    Every setup's stats go to :data:`setup_stats`."""
+def setup_draws(E, opts: AMGOptions, key: torch.Tensor) -> torch.Tensor:
+    """Every draw of the setup of ``E`` (this rank's rows under a mesh),
+    made beforehand from ``key`` (:func:`otamg_torch.random.setup_draws`)
+    and copied to ``E``'s device without blocking the host."""
     m, n = api.global_rows(E), E.shape[1]
     caps = capacity_schedule(m, n + m, opts)
-    nseg = n + m
+    return jr.to_device(jr.setup_draws(key, caps[:-1]), E.device)
 
-    def run(inputs):
-        E, g, itk, labels, nsp, gk, draws = inputs
-        lv1, dense, stats = _setup_levels(E, g, itk, labels, nsp, opts,
-                                          draws, gk)
-        deep_D = (_make_solve_cycle(nseg, len(dense), opts, deflated)
-                  .build_deep(lv1, dense, E.dtype)
-                  if opts.fuse_deep else None)
-        return [*_leaves(lv1), *(t for lv in dense for t in _leaves(lv)),
-                *([] if deep_D is None else [deep_D]), stats]
 
-    inputs = [E, g, _scalar(inv_tk, E), labels, nsp,
-              None if gk is None else gk.to(E.dtype),
-              jr.to_device(jr.setup_draws(key, caps[:-1]), E.device)]
-    if captured and gk is not None and E.is_cuda:
-        mesh = api.live_mesh()
-        blk = setup_graphs.get(setup_signature(inputs, opts, deflated,
-                                               mesh), inputs, run, mesh)
-        blk.load(inputs)
-        blk.replay()
-        setup_graphs.replays += 1
-        out = blk.outputs
-    else:
-        out = run(inputs)
+def setup_flat(E, g, inv_tk, labels, nsp, opts: AMGOptions, draws, gk,
+               deflated: bool = False, E_all=None) -> list:
+    """The hierarchy of :func:`setup_hierarchy` from its staged draws
+    and the deep matrix of ``opts.fuse_deep`` for :func:`amg_solve` with
+    ``deflated``, as one flat list of tensors (what a captured region
+    returns): the levels' leaves, the deep matrix (none without a fused
+    deep tape) and the setup's stats.  Reads nothing on the host on a
+    card.  :func:`setup_unflat` rebuilds the levels."""
+    m, n = api.global_rows(E), E.shape[1]
+    lv1, dense, stats = _setup_levels(E, g, _scalar(inv_tk, E), labels, nsp,
+                                      opts, draws,
+                                      None if gk is None else gk.to(E.dtype),
+                                      E_all)
+    deep_D = (_make_solve_cycle(n + m, len(dense), opts, deflated)
+              .build_deep(lv1, dense, E.dtype)
+              if opts.fuse_deep else None)
+    return [*_leaves(lv1), *(t for lv in dense for t in _leaves(lv)),
+            *([] if deep_D is None else [deep_D]), stats]
+
+
+def setup_unflat(out, num_dense: int):
+    """``(lv1, dense, deep_D)`` of :func:`setup_flat`'s list ``out``
+    with ``num_dense`` dense levels; its stats go to
+    :data:`setup_stats`."""
     nlv1, nd = _nleaves(BipartiteLevel), _nleaves(DenseLevel)
     lv1 = _from_leaves(BipartiteLevel, out[:nlv1])
     dense = tuple(_from_leaves(DenseLevel, out[nlv1 + i * nd:
                                                nlv1 + (i + 1) * nd])
-                  for i in range(len(caps)))
-    rest = out[nlv1 + len(caps) * nd:]
+                  for i in range(num_dense))
+    rest = out[nlv1 + num_dense * nd:]
     setup_stats.add(rest[-1])
     return lv1, dense, (rest[0] if len(rest) == 2 else None)
+
+
+def setup_solve(E, g, inv_tk, labels, nsp, opts: AMGOptions,
+                key: torch.Tensor, gk, deflated: bool = False):
+    """The hierarchy of :func:`setup_hierarchy` and the deep matrix of
+    ``opts.fuse_deep`` for :func:`amg_solve` (``deep=``) with
+    ``deflated``: ``(lv1, dense, deep_D)``, ``deep_D`` None without a
+    fused deep tape.  Every draw of the setup is made beforehand from
+    ``key`` (:func:`setup_draws`); the setup itself reads nothing on the
+    host, so on a card it can run inside a CUDA graph (the Newton solve's
+    front, ``otamg_torch.hybrid.solver.newton_front``).  Every setup's
+    stats go to :data:`setup_stats`."""
+    m, n = api.global_rows(E), E.shape[1]
+    out = setup_flat(E, g, inv_tk, labels, nsp, opts,
+                     setup_draws(E, opts, key), gk, deflated)
+    return setup_unflat(out, len(capacity_schedule(m, n + m, opts)))
 
 
 def _nleaves(cls) -> int:

@@ -20,12 +20,23 @@
   jit).  Its eigenpairs are not ``torch.linalg.eigh``'s bits: they agree
   to the tolerance a backward-stable eigensolver gives.
 
-Neither is a Pallas kernel of the JAX package: both replace XLA
-operations, so that the whole setup of a Newton solve can run as one
+* :func:`label_rounds` — the rounds of label propagation
+  (:func:`otamg_torch.amg.graph.connected_components_bipartite`) until
+  one changes nothing, in one launch of ``otamg_torch/csrc/labels.cu``
+  with no host read: the Hopper form of the ``lax.while_loop`` of
+  ``otamg/amg/graph.py::connected_components_bipartite``, with ``E != 0``
+  packed once into row and column bits in the shared memory of a
+  thread-block cluster or in a global workspace (:func:`label_layout`).
+  Every step is a minimum or a gather of integers, so the kernel gives
+  the plain loop's labels and round count bit for bit.
+
+None is a Pallas kernel of the JAX package: they replace XLA
+operations, so that the whole front of a Newton solve can run as one
 CUDA graph.  On a CPU tensor each wrapper runs its plain version; on a
 CUDA tensor it launches its kernel (built at first use, see
-:mod:`otamg_torch.cuda_build`) or raises.  ``mis_rounds.launches`` and
-``coarse_eigh.launches`` count the launches.
+:mod:`otamg_torch.cuda_build`) or raises.  ``mis_rounds.launches``,
+``coarse_eigh.launches`` and ``label_rounds.launches`` count the
+launches.
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ import functools
 import struct
 
 import torch
+
+from otamg_torch.dist import api
 
 _CODE = {torch.float32: 0, torch.float64: 1}
 # The largest dynamic shared memory a block may opt into on Hopper.
@@ -255,3 +268,108 @@ def coarse_eigh(A: torch.Tensor):
 
 
 coarse_eigh.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Label propagation
+# ---------------------------------------------------------------------------
+
+
+def label_round(has_edge: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """One round of label propagation: hook each node to its smallest
+    neighbour label, then jump pointers twice.  Under a mesh the row
+    minimum is local (then gathered) and the column minimum a minimum
+    over the ranks; the jumps run on the replicated labels."""
+    n = has_edge.shape[1]
+    N = L.shape[0]
+    lc, lr = L[:n], api.local_rows(L[n:])
+    # Hook: pull the minimum neighbour label across the edges.
+    lr2 = torch.minimum(lr, torch.where(has_edge, lc[None, :],
+                                        N).amin(dim=1))
+    lc2 = torch.minimum(lc, api.pmin(torch.where(has_edge, lr2[:, None],
+                                                 N).amin(dim=0)))
+    L2 = torch.cat([lc2, api.all_gather_rows(lr2)])
+    # Compress: pointer-jump twice so label chains halve each round.
+    L2 = L2[L2]
+    return L2[L2]
+
+
+def label_rounds_plain(has_edge: torch.Tensor, max_rounds: int = 64):
+    """The rounds in torch ops on the whole ``(m, n)`` bool mask:
+    ``(labels, rounds)``, the ``(n + m,)`` int64 labels (columns first)
+    and the 0-d int32 count.  :func:`label_round` runs until a round
+    changes nothing, read on the host after every round, at most
+    ``max_rounds`` times."""
+    m, n = has_edge.shape
+    L = torch.arange(n + m, dtype=torch.int64, device=has_edge.device)
+    done = 0
+    with api.use_mesh(None):
+        while done < max_rounds:
+            L2 = label_round(has_edge, L)
+            changed = bool(torch.any(L2 != L))
+            L = L2
+            done += 1
+            if not changed:
+                break
+    return L, torch.tensor(done, dtype=torch.int32, device=has_edge.device)
+
+
+# csrc/labels.cu's cluster size; its codes for E's dtype.
+LABEL_BLOCKS = 16
+_LABEL_CODE = {torch.float32: 0, torch.float64: 1}
+
+
+def label_layout(m: int, n: int) -> tuple:
+    """Where ``csrc/labels.cu`` keeps the bits of an ``(m, n)`` mask:
+    ``(layout, blocks, rows a block, columns a block, shared bytes,
+    workspace words)``.  One cluster of :data:`LABEL_BLOCKS` blocks, each
+    with four int32 label vectors of ``N = n + m`` in its shared memory
+    (three the peers write in turn, and the jumps' snapshot), owns a
+    panel of ``rows`` rows of ``ceil(n/32)`` words and ``cols`` columns
+    of ``ceil(m/32)`` words (multiples of 32; the last blocks may own
+    fewer or none).  Layout 0 keeps the panels in the blocks' shared
+    memory (square masks up to 2,896 a side), layout 1 in a global
+    workspace of ``m ceil(n/32) + n ceil(m/32)`` 32-bit words (up to N =
+    14,528, where the label vectors fill a block's shared memory).
+    Raises past that."""
+    N = n + m
+    Wn, Wm = -(-n // 32), -(-m // 32)
+    rows = 32 * -(-m // (32 * LABEL_BLOCKS))
+    cols = 32 * -(-n // (32 * LABEL_BLOCKS))
+    state = 4 * 4 * N
+    panels = 4 * (rows * Wn + cols * Wm)
+    if state + panels <= SMEM_MAX:
+        return 0, LABEL_BLOCKS, rows, cols, state + panels, 0
+    if state <= SMEM_MAX:
+        return 1, LABEL_BLOCKS, rows, cols, state, m * Wn + n * Wm
+    raise ValueError(f"label_rounds: {N} nodes exceed a block's shared "
+                     "memory")
+
+
+def label_rounds(E: torch.Tensor, max_rounds: int = 64):
+    """:func:`label_rounds_plain`'s ``(labels, rounds)`` of the mask
+    ``E != 0``; on a card one launch of ``csrc/labels.cu`` that tests
+    for a change on the device after every round, in the layout
+    :func:`label_layout` gives.  ``E`` is the whole ``(m, n)`` f32 or f64
+    matrix, contiguous, with ``m, n > 0``."""
+    if not E.is_cuda:
+        return label_rounds_plain(E != 0, max_rounds)
+    if not (E.dim() == 2 and E.dtype in _LABEL_CODE and E.is_contiguous()
+            and min(E.shape) > 0 and max_rounds >= 0):
+        raise ValueError("label_rounds: E a contiguous (m, n) f32 or f64 "
+                         "matrix with m, n > 0, and max_rounds >= 0")
+    m, n = E.shape
+    layout, nb, rows, cols, smem, nws = label_layout(m, n)
+    dev = E.get_device()
+    labels = torch.empty(n + m, dtype=torch.int64, device=E.device)
+    rounds = torch.empty((), dtype=torch.int32, device=E.device)
+    ws = torch.empty(nws, dtype=torch.int32, device=E.device) if nws else None
+    _launch("labels", "=15q", E.data_ptr(), labels.data_ptr(),
+            rounds.data_ptr(), m, n, max_rounds, _bound("labels")[2](dev),
+            dev, 0 if ws is None else ws.data_ptr(), layout, nb, rows, cols,
+            smem, _LABEL_CODE[E.dtype])
+    label_rounds.launches += 1
+    return labels, rounds
+
+
+label_rounds.launches = 0

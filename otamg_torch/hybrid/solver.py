@@ -18,10 +18,16 @@ The same transform serves the nullspace-augmented PCG
 (``make_aug_pcg_solver``); ``make_direct_solver`` assembles the Jacobian
 densely.
 
+Everything a Newton solve runs before its cycles, the transform, the
+components and the AMG setup, is its front (:func:`newton_front`): it
+reads nothing on the host on a card, where the chunked and fused drivers
+replay it as one CUDA graph per :func:`front_signature`.
+
 Under an active mesh (a row-sharded problem, :mod:`otamg_torch.dist`)
 ``S``, ``p`` and ``E`` are this rank's rows: the transform is
 :func:`otamg_torch.dist.transform_sharded`, the components are found on
-the sharded ``E`` and the hierarchy is the sharded one of
+the sharded ``E`` (on a card on the whole ``E``, gathered once for them
+and the setup) and the hierarchy is the sharded one of
 :func:`otamg_torch.amg.hierarchy.setup_hierarchy`; ``zeta`` comes out
 replicated.  The dense direct solvers need the whole ``S`` and refuse a
 mesh.
@@ -30,17 +36,20 @@ mesh.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from otamg_torch import random as jr
 from otamg_torch.amg.graph import connected_components_bipartite, segment_sum
-from otamg_torch.amg.hierarchy import (amg_solve, setup_hierarchy_generic,
-                                       setup_solve)
+from otamg_torch.amg.hierarchy import (_scalar, amg_solve, capacity_schedule,
+                                       setup_draws, setup_flat,
+                                       setup_hierarchy_generic, setup_unflat)
 from otamg_torch.config import AMGOptions, PCGOptions
 from otamg_torch.device import fetch
 from otamg_torch.dist import api
 from otamg_torch.dist.assembly import transform_sharded
+from otamg_torch.graphs import GraphCache
 from otamg_torch.krylov.pcg import pcg
 from otamg_torch.opt.newton import NewtonSolveResult, NewtonSolver
 from otamg_torch.ot import operators as op
@@ -151,6 +160,123 @@ def make_hybrid_amg_solver(p: torch.Tensor, q: torch.Tensor,
     return solve
 
 
+class Front(NamedTuple):
+    """What a Newton solve builds before its cycles (:func:`newton_front`):
+    the transform's ``E`` (this rank's rows), ``g`` and ``kdiag``, the
+    similarity ``q0`` and the whole ``p``; the component ``labels``,
+    ``nsp``, ``ncomp`` and ``last`` of :func:`_component_info`; and with
+    ``opts.bigph`` the hierarchy ``lv1``, ``dense`` and the deep matrix
+    ``deep`` of :func:`otamg_torch.amg.hierarchy.setup_solve` (None
+    otherwise)."""
+
+    E: torch.Tensor
+    g: torch.Tensor
+    kdiag: torch.Tensor
+    q0: torch.Tensor
+    p: torch.Tensor
+    labels: torch.Tensor
+    nsp: torch.Tensor
+    ncomp: torch.Tensor
+    last: torch.Tensor
+    lv1: object = None
+    dense: tuple | None = None
+    deep: torch.Tensor | None = None
+
+
+# The Newton solve's front (newton_front), one graph per front_signature.
+front_graphs = GraphCache()
+
+
+def front_signature(inputs, opts: AMGOptions, lo, dist_mesh,
+                    mesh=None) -> tuple:
+    """The key of a captured front: the shapes, dtypes and devices of its
+    inputs (``S``, ``tvec``, ``bk1``, ``tk``, ``p``, ``q`` and the
+    setup's draws), the options, the solve dtype ``lo`` (the deflated
+    cycle where it is below ``S``'s), whether the transform runs on an
+    explicit mesh, and the live mesh (group, rank and size; None for no
+    collective)."""
+    where = (None if mesh is None
+             else (mesh.group, mesh.rank, mesh.size))
+    return (tuple((tuple(t.shape), t.dtype, t.device) for t in inputs),
+            opts, lo, dist_mesh is not None, where)
+
+
+def _front(S, tvec, bk1, tk, p, q, opts: AMGOptions, lo, draws,
+           exit_every: int, dist_mesh) -> list:
+    """:func:`newton_front`'s work from the setup's staged ``draws``, as
+    one flat list of tensors: the first nine fields of :class:`Front`,
+    then :func:`otamg_torch.amg.hierarchy.setup_flat`'s list with
+    ``opts.bigph``.  On a card the whole ``E`` is gathered once under a
+    mesh, for the components and the setup."""
+    hi = S.dtype
+    E, g, kdiag, _, q0 = _transform(S, tvec, bk1, tk, torch.zeros_like(tvec),
+                                    p, q, dist_mesh)
+    pf = api.all_gather_rows(p)   # the whole p for the duals
+    E_all = None
+    if E.is_cuda:
+        E_all = api.all_gather_rows(E)
+        with api.use_mesh(None):
+            labels, nsp, ncomp, last = _component_info(E_all, kdiag)
+    else:
+        labels, nsp, ncomp, last = _component_info(E, kdiag, exit_every)
+    out = [E, g, kdiag, q0, pf, labels, nsp, ncomp, last]
+    if opts.bigph:
+        # bk1*Q + K/tk equals Ae @ (component indicator) exactly: the
+        # analytic form of the kernel-projection quantities.
+        gk = bk1 * torch.cat([q * q, pf * pf]) + kdiag / tk
+        out += setup_flat(E.to(lo), g.to(lo), 1.0 / tk, labels, nsp, opts,
+                          draws, gk.to(lo), lo != hi,
+                          None if E_all is None else E_all.to(lo))
+    return out
+
+
+def newton_front(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
+                 solve_dtype=None, exit_every: int = 1,
+                 dist_mesh=None) -> Front:
+    """Everything :func:`build_he_solver` runs before its ``he_solve``:
+    the transform (:func:`_transform`, on ``dist_mesh`` or the active
+    mesh), the components (:func:`_component_info`; on a card one launch
+    of the ``labels`` kernel) and, with ``opts.bigph``, the hierarchy and
+    its deep matrix in ``solve_dtype`` (:func:`otamg_torch.amg.hierarchy.
+    setup_solve`, its draws made from ``key`` beforehand).  Reads nothing
+    on the host on a card.  With ``exit_every > 1`` and ``opts.bigph`` on
+    a card the whole front is one CUDA graph (:data:`front_graphs`),
+    captured at the first solve of its :func:`front_signature` and
+    replayed for every later one, with a live mesh's collectives inside:
+    the fields are then the graph's outputs, written anew by the next
+    replay.  The loop driver and the CPU run the same code eagerly, with
+    the same bits; ``exit_every`` is the CPU's label-propagation read
+    interval."""
+    lo = S.dtype if solve_dtype is None else getattr(torch, solve_dtype)
+    draws = setup_draws(S, opts, key) if opts.bigph else None
+    if exit_every > 1 and opts.bigph and S.is_cuda:
+        mesh = api.live_mesh()
+        # A Python number would be baked into the graph: an input instead.
+        scalar = lambda x: x if isinstance(x, torch.Tensor) else _scalar(x, S)
+        inputs = [S, tvec, scalar(bk1), scalar(tk), p, q, draws]
+
+        def run(inputs):
+            return _front(*inputs[:6], opts, lo, inputs[6], exit_every,
+                          dist_mesh)
+
+        blk = front_graphs.get(front_signature(inputs, opts, lo, dist_mesh,
+                                               mesh), inputs, run, mesh)
+        blk.load(inputs)
+        blk.replay()
+        front_graphs.replays += 1
+        out = blk.outputs
+    else:
+        out = _front(S, tvec, bk1, tk, p, q, opts, lo, draws, exit_every,
+                     dist_mesh)
+    front = Front(*out[:9])
+    if not opts.bigph:
+        return front
+    m, n = api.global_rows(S), S.shape[1]
+    lv1, dense, deep = setup_unflat(
+        out[9:], len(capacity_schedule(m, n + m, opts)))
+    return front._replace(lv1=lv1, dense=dense, deep=deep)
+
+
 def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
                     solve_dtype=None, refine: int = 10, exit_every: int = 1,
                     dist_mesh=None):
@@ -176,40 +302,35 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
     ``dist_mesh`` is the mesh of the transform (the active one by
     default).
 
-    The bigph hierarchy and its deep matrix come from
-    :func:`otamg_torch.amg.hierarchy.setup_solve`, which reads nothing on
+    The transform, the components and the bigph hierarchy with its deep
+    matrix are the front of :func:`newton_front`, which reads nothing on
     the host; with ``exit_every > 1`` on a card they are one CUDA graph
     replay, and every ``he_solve`` of this Newton system (Class 2 makes
     two) uses them."""
     hi = S.dtype
     lo = hi if solve_dtype is None else getattr(torch, solve_dtype)
-    E, g, kdiag, _, q0 = _transform(S, tvec, bk1, tk, torch.zeros_like(tvec),
-                                    p, q, dist_mesh)
-    p_rows, p = p, api.all_gather_rows(p)   # the whole p for the duals
-    labels, nsp, ncomp, last = _component_info(E, kdiag, exit_every)
+    fr = newton_front(S, tvec, bk1, tk, p, q, opts, key, solve_dtype,
+                      exit_every, dist_mesh)
+    kdiag, q0, labels, nsp = fr.kdiag, fr.q0, fr.labels, fr.nsp
+    ncomp, last = fr.ncomp, fr.last
+    p_rows, p = p, fr.p
     # amg_solve's options: the interval, named only for a blocked solve
     # (1 is the default), and the bigph setup's deep matrix.
     solve_kw = {} if exit_every == 1 else dict(exit_every=exit_every)
     if opts.bigph:
-        # bk1*Q + K/tk equals Ae @ (component indicator) exactly: the
-        # analytic form of the kernel-projection quantities.
-        gk = bk1 * torch.cat([q * q, p * p]) + kdiag / tk
-        lv1, dense, deep = setup_solve(E.to(lo), g.to(lo), 1.0 / tk, labels,
-                                       nsp, opts, key, gk.to(lo),
-                                       deflated=lo != hi,
-                                       captured=exit_every > 1)
-        solve_kw["deep"] = deep
+        lv1, dense = fr.lv1, fr.dense
+        solve_kw["deep"] = fr.deep
     else:
         # Non-bigph mode (``Class_AMG.m:72``): assemble the dense Ae
         # (replicated, from the gathered E) and run the generic
         # weighted-Jacobi/MIS hierarchy.
-        E = api.all_gather_rows(E)
+        E = api.all_gather_rows(fr.E)
         n, m = q.shape[0], p.shape[0]
         Ae = torch.zeros(n + m, n + m, dtype=lo, device=E.device)
         Ae[:n, n:] = E.T
         Ae[n:, :n] = E
         Ae = (Ae * torch.as_tensor(-1.0 / tk, dtype=lo, device=E.device)
-              + torch.diag(g.to(lo)))
+              + torch.diag(fr.g.to(lo)))
         lv1, dense = setup_hierarchy_generic(Ae, opts, key, labels, nsp)
 
     def draw_guess(f, kguess):

@@ -5,8 +5,9 @@ read-free ``setup_hierarchy`` against the JAX package's and against the
 port's previous read-driven setup (``tests/data/setup_read_driven.npz``:
 its levels on the same two Newton systems, one that fires the defect
 repair and one whose MIS bails out), with no ``fetch`` across the setup
-and the deep matrix.  The CUDA graph of the setup and the ``mis`` and
-``coarse_eigh`` kernels run only on a card (``cuda`` marker)."""
+and the deep matrix.  The CUDA graph of the setup (captured with the
+Newton solve's front) and the ``mis`` and ``coarse_eigh`` kernels run
+only on a card (``cuda`` marker)."""
 
 import os
 
@@ -38,15 +39,20 @@ READ_DRIVEN = os.path.join(os.path.dirname(__file__), "data",
                            "setup_read_driven.npz")
 
 
-def newton_system(seed, m, n, density, bk1=1e-3, tk=0.5):
-    """``(E, g, inv_tk, labels, nsp, gk)`` of a Class-1 Newton system
-    (``tvec`` 0, so every component is near-singular) on a random active
-    set, as ``build_he_solver`` hands them to the setup."""
+def newton_inputs(seed, m, n, density):
+    """``(S, tvec, p, q)`` of a Class-1 Newton system (``tvec`` 0, so
+    every component is near-singular) on a random active set."""
     rng = np.random.default_rng(seed)
     S = torch.as_tensor((rng.uniform(size=(m, n)) < density).astype(float))
     p = torch.as_tensor(rng.uniform(0.5, 1.5, m))
     q = torch.as_tensor(rng.uniform(0.5, 1.5, n))
-    tvec = torch.zeros(n + m, dtype=torch.float64)
+    return S, torch.zeros(n + m, dtype=torch.float64), p, q
+
+
+def newton_system(seed, m, n, density, bk1=1e-3, tk=0.5):
+    """``(E, g, inv_tk, labels, nsp, gk)`` of :func:`newton_inputs`'
+    system, as ``build_he_solver`` hands them to the setup."""
+    S, tvec, p, q = newton_inputs(seed, m, n, density)
     E, g, kdiag, _, _ = thyb._transform(S, tvec, bk1, tk, tvec, p, q)
     labels, nsp, _, _ = thyb._component_info(E, kdiag)
     gk = bk1 * torch.cat([q * q, p * p]) + kdiag / tk
@@ -370,17 +376,20 @@ def test_coarse_eigh_kernel(card, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_setup_capture_equals_eager(card, name):
-    """The captured setup's levels and deep matrix equal the eager
-    setup's bit for bit, at the capture and at a replay."""
+    """The setup captured with the rest of the Newton solve's front
+    (``newton_front``) gives the eager setup's levels and deep matrix bit
+    for bit, at the capture and at a replay: one capture, two
+    replays."""
     seed = CASES[name][0]
-    system = [t.to(card) if isinstance(t, torch.Tensor) else t
-              for t in newton_system(*CASES[name])]
-    th.setup_graphs.clear()
-    eager = th.setup_solve(*system[:5], AMG_T, tr.PRNGKey(seed), system[5])
+    S, tvec, p, q = (t.to(card) for t in newton_inputs(*CASES[name]))
+    bk1, tk_ = (torch.tensor(v, dtype=torch.float64, device=card)
+                for v in (1e-3, 0.5))
+    args = (S, tvec, bk1, tk_, p, q, AMG_T, tr.PRNGKey(seed))
+    thyb.front_graphs.clear()
+    eager = thyb.newton_front(*args)
     for _ in range(2):
-        got = th.setup_solve(*system[:5], AMG_T, tr.PRNGKey(seed),
-                             system[5], captured=True)
-        for a, b in zip(leaves(*got[:2]) + [got[2]],
-                        leaves(*eager[:2]) + [eager[2]]):
+        got = thyb.newton_front(*args, exit_every=2)
+        for a, b in zip(leaves(got.lv1, got.dense) + [got.deep],
+                        leaves(eager.lv1, eager.dense) + [eager.deep]):
             assert torch.equal(a, b)
-    assert (th.setup_graphs.captures, th.setup_graphs.replays) == (1, 2)
+    assert (thyb.front_graphs.captures, thyb.front_graphs.replays) == (1, 2)

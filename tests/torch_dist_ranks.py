@@ -153,6 +153,61 @@ def sparse_opts(torch_side: bool = True):
 BLOCKED = ("chunk1", "chunk3", "chunk8", "fused")
 """The blocked drivers of the sharded solves: chunked with ``chunk``
 1, 3 and 8, and fused."""
+def labels_mask():
+    """A 40 x 36 mask of several components."""
+    rng = np.random.default_rng(12)
+    return (rng.uniform(size=(40, 36))
+            * (rng.uniform(size=(40, 36)) < 0.04))
+
+
+def front_arrays(seed: int = 9, m: int = 40, n: int = 36,
+                 density: float = 0.05):
+    """``(S, tvec, bk1, tk, p, q)`` of a Class-1 Newton system on a
+    random active set (``tvec`` 0 on half the nodes)."""
+    rng = np.random.default_rng(seed)
+    S = (rng.uniform(size=(m, n)) < density).astype(float)
+    p, q = rng.uniform(0.5, 1.5, m), rng.uniform(0.5, 1.5, n)
+    tvec = (rng.uniform(size=n + m) < 0.5).astype(float)
+    return S, tvec, np.float64(1e-3), np.float64(0.5), p, q
+
+
+def labels_rank(rank: int, world: int, url: str, outdir: str) -> None:
+    """On this rank's rows of :func:`labels_mask`: the labels of the
+    gathered mask (one ``label_rounds`` call, the card's form) and of
+    the sharded loop (a minimum and a gather a round, the CPU's); and
+    the labels, ``ncomp`` and ``last`` of the sharded ``newton_front`` of
+    :func:`front_arrays`."""
+    mesh = _start(rank, world, url)
+    from otamg_torch.amg.graph import connected_components_bipartite
+    from otamg_torch.amg.kernels import label_rounds
+    from otamg_torch.config import AMGOptions, Cycle
+    from otamg_torch.dist import api
+    from otamg_torch.hybrid.solver import newton_front
+    from otamg_torch.random import PRNGKey
+
+    out: dict = {}
+
+    def rows(a):
+        r0, r1 = mesh.rows(a.shape[0])
+        return T(a)[r0:r1].contiguous()
+
+    def front():
+        S, tvec, bk1, tk, p, q = front_arrays()
+        fr = newton_front(rows(S), T(tvec), T(bk1), T(tk), rows(p), T(q),
+                          AMGOptions(cycle=Cycle.F, fuse_deep=True,
+                                     coarse_target=6), PRNGKey(9))
+        return fr.labels.numpy(), int(fr.ncomp), int(fr.last)
+
+    E = labels_mask()
+    with api.use_mesh(mesh):
+        _case(out, "gathered", lambda: label_rounds(
+            api.all_gather_rows(rows(E)))[0].numpy())
+        _case(out, "per_round",
+              lambda: connected_components_bipartite(rows(E)).numpy())
+        _case(out, "front", front)
+    _finish(rank, outdir, out)
+
+
 PARTS = ("main", "blocked1", "blocked2")
 """The groups of cases :func:`dist_rank` runs, each world spawned once
 per part so that the parts run side by side: the ``dist/`` functions
