@@ -38,9 +38,11 @@ coarsening, ``eigh``, and its deep matrix: ``setup_flat``),
 ``deep_matrix`` (``build_deep``, where it runs eagerly, inside
 ``setup_solve``),
 ``amg_solve``,
-``he_solve`` (the guess draw and, mixed, the refinement rounds around
-the correction solves), ``build_he_solver`` (the rest of a Newton
-system's set-up), ``merit`` (the Armijo merit, where it runs op by op),
+``he_solve`` (the guess draw and, mixed on the loop driver, the
+refinement rounds around the correction solves), ``refinement`` (mixed
+on the chunked and fused drivers: the whole refinement, its regions'
+CUDA graph replays, their input copies and one read a block),
+``build_he_solver`` (the rest of a Newton system's set-up), ``merit`` (the Armijo merit, where it runs op by op),
 ``outer_step`` (the rest of the SsN step and the outer step; on the
 chunked and fused drivers the replays of the step's regions, whose
 graphs hold the merit, and the copies into them) and ``driver`` (the
@@ -173,6 +175,13 @@ class Layers:
 
         self.patch("otamg_torch.amg.hierarchy", "make_cycle",
                    cycle_with_ranges)
+        refinement = getattr(solver, "Refinement", None)
+        if refinement is not None:
+            # The blocked drivers' mixed refinement: its regions' replays
+            # and reads (an instance is the he_solve it ranges).
+            self.saved.append((refinement, "__call__", refinement.__call__))
+            refinement.__call__ = self.ranged("refinement",
+                                              refinement.__call__)
         for mod in (solver, pot):
             build = mod.build_he_solver
 
@@ -452,7 +461,8 @@ def profile_solve(args, smi, solve, prob, opts) -> int:
         layers.restore()
     reads = fetch.reads - reads0
     names = {n for *_, n in SOLVE_LAYERS} | {
-        "deep_matrix", "he_solve", "build_he_solver", "outer_step"}
+        "deep_matrix", "he_solve", "build_he_solver", "outer_step",
+        "refinement"}
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.name not in names]

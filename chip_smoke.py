@@ -82,7 +82,15 @@ Phases, each printing one JSON line with its numbers and seconds:
    the JAX package's CPU run of the same problem and
    options (``MIXED_REF``) and printed beside the f64 run's seconds from
    this call, with the refinement rounds, reverted rounds and mean
-   correction cycles.  Fails if TF32 matmuls are on;
+   correction cycles; then the blocked drivers (Class-1 500x500 chunked
+   twice and fused, 1024x1024 chunked and fused, Class-2 500x500
+   chunked), whose refinement rounds run as CUDA graphs over the front's
+   buffers, each held to ``MIXED_REF`` and to its loop run bit for bit
+   (trajectory and refinement counts) and printed beside the f64 run of
+   its driver from this call, with its reads, the refinement's reads
+   and block replays a ``he_solve`` and its captures and replays; fails
+   if a correction solve runs op by op there, or a refinement region is
+   captured more than once a signature.  Fails if TF32 matmuls are on;
 8. roofline — the bytes model of the warm Class-1 500x500 f64 run of
    phase 5 (``otamg_torch.diag.roofline``) against the card's memory
    bandwidth; reported, not held;
@@ -130,7 +138,10 @@ Phases, each printing one JSON line with its numbers and seconds:
    regions its sums) and graph captures and replays; fails unless a
    captured block, a captured front and a captured step region hold a
    collective, each Newton solve replays one front and each SsN step
-   the step's regions.
+   the step's regions; (i) the chunked driver's mixed Class-1 500x500
+   solve on the sharded problem held bit for bit to phase 7's unsharded
+   chunked mixed run, refinement counts included, its refinement
+   regions captured with their collectives.
 
 Then a line with each path's ``label_rounds`` launches (fails where a path
 that runs its own front launched none, or any path ran a plain label
@@ -219,6 +230,33 @@ def count_plain_rounds():
 
 
 count_plain_rounds.calls = 0
+
+
+def count_refinement():
+    """Count the mixed refinement's host reads (``fetch`` of
+    ``hybrid/solver.py``: the loop's rounds, the blocked refinement's
+    blocks) in ``count_refinement.reads``, and in
+    ``count_refinement.eager`` the ``amg_solve`` calls of
+    ``hybrid/solver.py`` on a card tensor: in a mixed run the loop's
+    correction solves, each round's op by op (none on the blocked
+    drivers, whose rounds run inside the refinement's CUDA graphs)."""
+    from otamg_torch.hybrid import solver
+
+    fetch, amg_solve = solver.fetch, solver.amg_solve
+
+    def counted_fetch(x):
+        count_refinement.reads += 1
+        return fetch(x)
+
+    def counted_solve(lv1, dense, b, *a, **kw):
+        if b.is_cuda:
+            count_refinement.eager += 1
+        return amg_solve(lv1, dense, b, *a, **kw)
+
+    solver.fetch, solver.amg_solve = counted_fetch, counted_solve
+
+
+count_refinement.reads = count_refinement.eager = 0
 
 
 class SyncCount:
@@ -751,7 +789,7 @@ def path_state() -> dict:
     launches)."""
     from otamg_torch.amg.hierarchy import amg_graphs, setup_stats
     from otamg_torch.device import fetch
-    from otamg_torch.hybrid.solver import front_graphs
+    from otamg_torch.hybrid.solver import front_graphs, refine_graphs
     from otamg_torch.opt.regions import step_graphs
 
     setups, repairs, rounds, bails = setup_stats.read()
@@ -759,6 +797,10 @@ def path_state() -> dict:
                 rounds=rounds, bails=bails,
                 front_captures=front_graphs.captures,
                 front_replays=front_graphs.replays,
+                refine_captures=refine_graphs.captures,
+                refine_replays=refine_graphs.replays,
+                refine_reads=count_refinement.reads,
+                eager_correction_solves=count_refinement.eager,
                 amg_captures=amg_graphs.captures,
                 amg_replays=amg_graphs.replays,
                 step_captures=step_graphs.captures,
@@ -799,6 +841,10 @@ def run_numbers(res, before, sync, secs) -> dict:
         repairs=d["repairs"], repairs_per_newton_solve=d["repairs"] / newton,
         mis_rounds_per_setup=d["rounds"] / max(d["setups"], 1),
         mis_bails=d["bails"],
+        refine_captures=d["refine_captures"],
+        refine_replays=d["refine_replays"],
+        refine_reads=d["refine_reads"],
+        eager_correction_solves=d["eager_correction_solves"],
         launches={k: d[k] for k in ("segment_sum", "mis_rounds",
                                     "coarse_eigh", "label_rounds",
                                     "plain_label_rounds_on_card")})
@@ -1610,28 +1656,23 @@ def phase_setup_graph(dev, loops):
     replay of the outer step's regions per SsN step, each region
     captured by the first run of its signature only (chunk 8 and the
     fused driver share it), and at most half the loop's host reads per
-    outer iteration (Class 2: fewer).  Returns each run's launches."""
+    outer iteration (Class 2: fewer).  Returns each run's launches and
+    its seconds by (class, size, driver)."""
     from otamg_torch.amg.hierarchy import amg_graphs
     from otamg_torch.hybrid.solver import front_graphs
-    from otamg_torch.opt import (solve_class1_chunked, solve_class1_fused,
-                                 solve_class2_chunked)
     from otamg_torch.opt.regions import step_graphs
 
-    chunked1 = lambda p, o: solve_class1_chunked(p, o, chunk=8)
-    chunked2 = lambda p, o: solve_class2_chunked(p, o, chunk=8)
     amg_graphs.clear()
     front_graphs.clear()
     step_graphs.clear()
-    launches = {}
+    launches, walls = {}, {}
     # (class, size) -> [front captures, AMG block captures, the step's
     # region captures by run]
     captures = {}
-    runs = ((1, 500, "chunked", chunked1), (1, 500, "chunked_warm", chunked1),
-            (1, 500, "fused", solve_class1_fused),
-            (1, 1024, "chunked", chunked1),
-            (1, 1024, "fused", solve_class1_fused),
-            (2, 500, "chunked", chunked2))
-    for cls, size, name, solve in runs:
+    runs = ((1, 500, "chunked"), (1, 500, "chunked_warm"), (1, 500, "fused"),
+            (1, 1024, "chunked"), (1, 1024, "fused"), (2, 500, "chunked"))
+    for cls, size, name in runs:
+        solve = blocked_solve(cls, name)
         base, base_s, base_reads, base_nums = loops[(cls, size)]
         if cls == 1:
             res, secs, reads = run_class1(size, size, dev, class1_opts(),
@@ -1643,6 +1684,7 @@ def phase_setup_graph(dev, loops):
             ref = held_to_reference(size, res)
         nums = dict(LAST)
         launches[f"class{cls}_{size}_{name}"] = nums["launches"]
+        walls[(cls, size, name)] = secs
         row = dict(same_as_loop=same_run(res, base), loop=base_nums,
                    **nums, **ref)
         emit(f"setup_graph_class{cls}_{size}", driver=name, **row)
@@ -1673,16 +1715,65 @@ def phase_setup_graph(dev, loops):
            for v in captures.values()):
         raise AssertionError(f"not one front, one AMG block and one capture "
                              f"of each step region per signature: {captures}")
-    return launches
+    return launches, walls
 
 
-def phase_mixed(dev, f64_seconds):
+def blocked_solve(cls, name):
+    """``solve(prob, opts)`` of the Class-``cls`` blocked driver ``name``
+    (``chunked`` and ``chunked_warm``: chunk 8; ``fused``)."""
+    from otamg_torch import opt
+
+    if name == "fused":
+        return getattr(opt, f"solve_class{cls}_fused")
+    chunked = getattr(opt, f"solve_class{cls}_chunked")
+    return lambda p, o: chunked(p, o, chunk=8)
+
+
+def refine_numbers() -> tuple:
+    """``(solves, rounds, reverted, cycles)`` of ``refine_counts``."""
+    from otamg_torch.hybrid.solver import refine_counts as c
+
+    return c.solves, c.rounds, c.reverted, c.cycles
+
+
+def run_mixed(cls, size, dev, solve=None):
+    """(result, seconds, numbers) of a mixed run (``run_class1`` or
+    ``run_class2`` with ``solve_dtype="float32"``), the refinement's
+    counts among its numbers."""
+    from otamg_torch.hybrid.solver import refine_counts
+
+    refine_counts.reset()
+    if cls == 1:
+        res, secs, _ = run_class1(size, size, dev, class1_opts("float32"),
+                                  solve)
+    else:
+        res, secs, _ = run_class2(size, size, dev, class2_opts("float32"),
+                                  solve)
+    nums = dict(LAST, refine_counts=refine_numbers())
+    return res, secs, nums
+
+
+def phase_mixed(dev, f64_seconds, f64_blocked):
     """``bench.py``'s configuration on an accelerator: the Newton solves
     with ``solve_dtype="float32"`` (fp32 hierarchy, exact kernel
     deflation, f64 refinement), each run held to the JAX package's CPU
     run of the same problem and options (``MIXED_REF``), beside the f64
-    run's seconds from this call (``f64_seconds[(class, size, run)]``)."""
-    from otamg_torch.hybrid.solver import refine_counts
+    run's seconds of the same driver from this call (``f64_seconds[(class,
+    size, run)]`` of the loop, ``f64_blocked[(class, size, driver)]`` of
+    the blocked drivers).  The loop driver's runs first (Class-1 500^2,
+    1024^2, Class-2 500^2), then the blocked drivers' (Class-1 500^2
+    chunked twice and fused, 1024^2 chunked and fused, Class-2 500^2
+    chunked), whose refinement rounds run as the CUDA graphs of
+    ``Refinement``: each held to its loop run bit for bit (iterations,
+    failures, SsN steps, every objective and the refinement's solves,
+    rounds, reverted rounds and cycles), with no correction solve run op
+    by op, the refinement's reads equal to its block replays (at most
+    the blocks plus one a Newton solve), one front replay a Newton solve
+    and each refinement region captured once per signature (chunk 8 and
+    the fused driver share them).  Returns the chunked Class-1 500^2
+    mixed run (result and refinement counts) and each blocked run's
+    launches."""
+    from otamg_torch.hybrid.solver import refine_graphs
 
     tf32 = dict(allow_tf32=torch.backends.cuda.matmul.allow_tf32,
                 float32_matmul_precision=torch.get_float32_matmul_precision())
@@ -1690,24 +1781,67 @@ def phase_mixed(dev, f64_seconds):
     if tf32["allow_tf32"] or tf32["float32_matmul_precision"] != "highest":
         raise AssertionError(f"TF32 matmuls are on ({tf32}): the fp32 "
                              "hierarchy needs true fp32")
+    loops = {}
     # (class, size, the f64 run of this call it is put beside)
     for cls, size, f64_run in ((1, 500, "warm"), (1, 1024, "once"),
                                (2, 500, "once")):
-        refine_counts.reset()
-        if cls == 1:
-            res, secs, reads = run_class1(size, size, dev,
-                                          class1_opts("float32"))
-        else:
-            res, secs, reads = run_class2(size, size, dev,
-                                          class2_opts("float32"))
-        c = refine_counts
-        emit("mixed", **{"class": cls}, size=size, seconds=secs,
-             f64_seconds=f64_seconds[(cls, size, f64_run)],
-             host_reads_per_outer_iter=reads, newton_solves=c.solves,
-             refine_rounds=c.rounds, reverted_rounds=c.reverted,
-             rounds_per_solve=c.rounds / max(c.solves, 1),
-             mean_correction_cycles=c.cycles / max(c.rounds, 1),
+        res, secs, nums = run_mixed(cls, size, dev)
+        loops[(cls, size)] = (res, nums)
+        solves, rounds, reverted, cycles = nums["refine_counts"]
+        emit("mixed", **{"class": cls}, size=size, driver="loop",
+             seconds=secs, f64_seconds=f64_seconds[(cls, size, f64_run)],
+             host_reads_per_outer_iter=nums["host_reads_per_outer_iter"],
+             newton_solves=solves, refine_rounds=rounds,
+             reverted_rounds=reverted,
+             rounds_per_solve=rounds / max(solves, 1),
+             mean_correction_cycles=cycles / max(rounds, 1),
+             refine_reads_per_he_solve=nums["refine_reads"]
+             / max(solves, 1),
+             eager_correction_solves=nums["eager_correction_solves"],
              **held_to_mixed_reference(cls, size, res))
+    refine_graphs.clear()
+    launches, captured = {}, set()
+    for cls, size, name in ((1, 500, "chunked"), (1, 500, "chunked_warm"),
+                            (1, 500, "fused"), (1, 1024, "chunked"),
+                            (1, 1024, "fused"), (2, 500, "chunked")):
+        base, base_nums = loops[(cls, size)]
+        res, secs, nums = run_mixed(cls, size, dev, blocked_solve(cls, name))
+        if name == "chunked" and (cls, size) == (1, 500):
+            chunked500 = (res, nums["refine_counts"])
+        launches[f"mixed_class{cls}_{size}_{name}"] = nums["launches"]
+        solves = max(nums["refine_counts"][0], 1)
+        blocks = nums["refine_replays"] - nums["refine_counts"][0]
+        row = dict(
+            same_as_loop=same_run(res, base),
+            same_refine_counts=nums["refine_counts"]
+            == base_nums["refine_counts"],
+            loop_seconds=base_nums["seconds"],
+            f64_seconds=f64_blocked[(cls, size, name)],
+            refine_reads_per_he_solve=nums["refine_reads"] / solves,
+            refine_read_bound_per_he_solve=(blocks + solves) / solves,
+            loop_refine_reads_per_he_solve=base_nums["refine_reads"]
+            / solves,
+            refine_blocks_per_he_solve=blocks / solves, **nums,
+            **held_to_mixed_reference(cls, size, res))
+        emit(f"mixed_class{cls}_{size}", driver=name, **row)
+        sig = (cls, size)
+        want_captures = 0 if sig in captured else 2
+        captured.add(sig)
+        if not (row["same_as_loop"] and row["same_refine_counts"]
+                and nums["eager_correction_solves"] == 0
+                and nums["refine_reads"] == blocks
+                and nums["refine_captures"] == want_captures
+                and nums["front_replays_per_newton_solve"] == 1.0
+                and nums["launches"]["plain_label_rounds_on_card"] == 0):
+            raise AssertionError(
+                f"mixed Class-{cls} {size}x{size} {name} differs from its "
+                "loop run, runs a correction solve op by op, reads besides "
+                "its refinement blocks or does not capture each refinement "
+                "region once per signature")
+    emit("mixed_refine_caches", refine_captures=refine_graphs.captures,
+         refine_replays=refine_graphs.replays,
+         regions=sorted({name for _, name in refine_graphs.blocks}))
+    return chunked500, launches
 
 
 # The JAX package's solves on the CPU of random_class1/2(PRNGKey(0), N, N)
@@ -2332,6 +2466,41 @@ def dist_blocked_checks(dev, mesh, loops):
     return spmv, seg, setupk
 
 
+def dist_mixed_check(dev, mesh, chunked500):
+    """(i): the chunked (``chunk=8``) driver's mixed Class-1 500x500 solve
+    on the sharded problem, at one rank, held bit for bit to the
+    unsharded chunked mixed run of phase 7 (``chunked500``: its result
+    and refinement counts): iterations, failures, SsN steps, every
+    objective and the refinement's counts, with the refinement's
+    regions captured under the mesh (its collectives inside) and no
+    correction solve op by op.  Returns its ``ell_spmv``, ``segment_sum``
+    and setup kernels' launches."""
+    from otamg_torch.hybrid.solver import refine_graphs
+    from otamg_torch.opt import solve_class1_chunked
+
+    base, base_counts = chunked500
+    refine_graphs.clear()
+    (out, n_spmv, n_seg) = counted_launches(lambda: run_mixed(
+        1, 500, dev, lambda p, o: solve_class1_sharded(
+            p, o, mesh, lambda q, oo: solve_class1_chunked(q, oo, chunk=8))))
+    res, _, nums = out
+    row = dict(driver="chunked", same_as_unsharded=same_run(res, base),
+               same_refine_counts=nums["refine_counts"] == base_counts,
+               eager_collectives=counted_launches.eager,
+               replayed_collectives=counted_launches.replayed,
+               refine_graph_collectives=refine_graphs.captured_collectives,
+               segment_sum_launches=n_seg, **nums)
+    emit("dist_mixed_chunked_class1_500", **row)
+    if not (row["same_as_unsharded"] and row["same_refine_counts"]
+            and nums["refine_captures"] == 2
+            and refine_graphs.captured_collectives > 0
+            and nums["eager_correction_solves"] == 0):
+        raise AssertionError("sharded mixed chunked Class-1 500x500 differs "
+                             "from the unsharded run or its refinement "
+                             "graphs hold no collective")
+    return n_spmv, n_seg, counted_launches.setup
+
+
 def solve_class1_sharded(prob, opts, mesh, solve=None):
     """``solve`` (``solve_class1`` by default) on ``prob`` row-sharded
     over ``mesh``; the result's plan gathered whole."""
@@ -2406,7 +2575,7 @@ def dist_multirank_check():
          wall_seconds=time.perf_counter() - t0, **row)
 
 
-def phase_dist(card, dev, runs1, warm1, grid_res, sparse_res):
+def phase_dist(card, dev, runs1, warm1, grid_res, sparse_res, chunked500):
     """Phase 11: ``otamg_torch.dist`` on a one-rank NCCL group, beside
     the unsharded runs of phases 4, 5 and 9, and the blocked drivers
     beside its own sharded loop runs.  Returns the ``ell_spmv``,
@@ -2433,6 +2602,9 @@ def phase_dist(card, dev, runs1, warm1, grid_res, sparse_res):
         spmv.update(blocked_spmv)
         seg.update(blocked_seg)
         setupk.update(blocked_setupk)
+        name = "dist_mixed_class1_chunked"
+        spmv[name], seg[name], setupk[name] = dist_mixed_check(dev, mesh,
+                                                               chunked500)
     finally:
         dist.destroy_process_group()
     dist_cli_check()
@@ -2486,6 +2658,7 @@ def main() -> int:
     build_s = cuda_build.build_all(verbose=True)
     emit("build", seconds=build_s)
     count_plain_rounds()
+    count_refinement()
 
     t0 = time.perf_counter()
     rows = phase_kernels(card, dev)
@@ -2510,9 +2683,9 @@ def main() -> int:
     setupk["class2"] = setup_counts()
     emit("class2", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    graph_launches = phase_setup_graph(dev, {(1, 500): warm1,
-                                             (1, 1024): loop1024,
-                                             (2, 500): warm2})
+    graph_launches, blocked64 = phase_setup_graph(dev, {(1, 500): warm1,
+                                                        (1, 1024): loop1024,
+                                                        (2, 500): warm2})
     for name, n in graph_launches.items():
         seg[name] = n["segment_sum"]
         setupk[name] = {k: n[k] for k in ("mis_rounds", "coarse_eigh",
@@ -2523,8 +2696,13 @@ def main() -> int:
     f64.update({(2,) + k: v for k, v in runs2.items()})
     t0 = time.perf_counter()
     zero_counts()
-    phase_mixed(dev, f64)
+    chunked500, mixed_launches = phase_mixed(dev, f64, blocked64)
     setupk["mixed"] = setup_counts()
+    for name, n in mixed_launches.items():
+        seg[name] = n["segment_sum"]
+        setupk[name] = {k: n[k] for k in ("mis_rounds", "coarse_eigh",
+                                          "label_rounds",
+                                          "plain_label_rounds_on_card")}
     emit("mixed_all", seconds=time.perf_counter() - t0)
     phase_roofline(card, *warm1[:2])
     zero_counts()
@@ -2536,7 +2714,8 @@ def main() -> int:
     emit("cli", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     dist_spmv, dist_seg, dist_setupk = phase_dist(card, dev, runs1, warm1,
-                                                  grid_res, sparse_res)
+                                                  grid_res, sparse_res,
+                                                  chunked500)
     launches.update(dist_spmv)
     seg.update(dist_seg)
     setupk.update(dist_setupk)

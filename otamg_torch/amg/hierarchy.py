@@ -1155,6 +1155,24 @@ def _solve_step(cycle, mv0, lv1, dense, deep_D, b, safe0, retol_eff: float,
             go & ~done)
 
 
+def solve_start(lv1, b, guess, a_guess):
+    """:func:`amg_solve`'s first state ``(x, r, rel, it, go)`` from
+    ``guess`` and its product ``a_guess`` with the fine level, and
+    ``safe0``, the initial residual's norm (1 where it is 0)."""
+    r = b - a_guess
+    res0 = _norm(lv1, r)
+    safe0 = torch.where(res0 == 0, 1.0, res0)
+    return (guess, r, torch.ones((), dtype=b.dtype, device=b.device),
+            torch.zeros((), dtype=torch.int64, device=b.device),
+            res0 != 0), safe0
+
+
+def solve_retol(opts: AMGOptions, dtype) -> float:
+    """:func:`amg_solve`'s relative tolerance in ``dtype``: ``opts.retol``
+    floored at 4 eps below f64."""
+    return max(opts.retol, 4 * torch.finfo(dtype).eps)
+
+
 amg_graphs = GraphCache()
 
 
@@ -1205,10 +1223,10 @@ def graph_signature(inputs, deep: bool, smoth: int, gamma: int,
             where)
 
 
-def _capturable(lv1, dense, b, deep_D, coarse_direct: bool) -> bool:
+def reads_nothing(lv1, dense, deep_D, coarse_direct: bool) -> bool:
     """The cycle makes no host read: the bipartite level over dense
-    levels with the direct (or fused) coarse solve, on a card."""
-    return (b.is_cuda and isinstance(lv1, BipartiteLevel)
+    levels with the direct (or fused) coarse solve."""
+    return (isinstance(lv1, BipartiteLevel)
             and all(isinstance(lv, DenseLevel) for lv in dense)
             and (deep_D is not None
                  or (coarse_direct and len(dense) > 0
@@ -1264,14 +1282,11 @@ def amg_solve(lv1, dense: Sequence[DenseLevel], b: torch.Tensor,
                   if opts.fuse_deep else None)
     mv0 = _level0_ops(lv1)[0]
 
-    r = b - mv0(lv1, guess)
-    res0 = _norm(lv1, r)
-    safe0 = torch.where(res0 == 0, 1.0, res0)
-    retol_eff = max(opts.retol, 4 * torch.finfo(b.dtype).eps)
-    state = (guess, r, torch.ones((), dtype=b.dtype, device=b.device),
-             torch.zeros((), dtype=torch.int64, device=b.device), res0 != 0)
+    state, safe0 = solve_start(lv1, b, guess, mv0(lv1, guess))
+    retol_eff = solve_retol(opts, b.dtype)
 
-    if exit_every > 1 and _capturable(lv1, dense, b, deep_D, coarse_direct):
+    if (exit_every > 1 and b.is_cuda
+            and reads_nothing(lv1, dense, deep_D, coarse_direct)):
         nlv1 = len(_leaves(lv1))
         nd = len(_leaves(dense[0]))
 

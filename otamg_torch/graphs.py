@@ -3,10 +3,13 @@
 A region is a function of device tensors whose kernels, and the
 collectives of a live mesh, can be recorded once and replayed: the AMG
 block of :func:`otamg_torch.amg.hierarchy.amg_solve`, the Newton solve's
-setup (:func:`otamg_torch.amg.hierarchy.setup_solve`) and the regions of
-an outer step (:mod:`otamg_torch.opt.regions`).  Each user keeps its
-regions in a :class:`GraphCache`, one graph per signature; a region runs
-once outside the capture (the warm-up) before it is captured.
+front (:func:`otamg_torch.hybrid.solver.newton_front`), its mixed
+refinement rounds and the regions of an outer step
+(:mod:`otamg_torch.opt.regions`).  Each user keeps its regions in a
+:class:`GraphCache`, one graph per signature; a region runs once outside
+the capture (the warm-up) before it is captured.  Regions that pass
+values to each other through static buffers keep them in a
+:class:`State` and run through :func:`run_region`.
 """
 
 from __future__ import annotations
@@ -96,3 +99,46 @@ class GraphCache:
         if st is None:
             st = self.states[sig] = make()
         return st
+
+
+class State:
+    """The static buffers that a signature's regions share.  ``st.name =
+    value`` copies ``value`` into the buffer ``name``, made on the
+    state's device the first time (never inside a capture); a buffer
+    keeps its shape and dtype.  ``owner`` is the user whose data the
+    buffers hold."""
+
+    def __init__(self, device):
+        object.__setattr__(self, "device", device)
+        object.__setattr__(self, "owner", None)
+
+    def __setattr__(self, name, value):
+        buf = self.__dict__.get(name)
+        if buf is None:
+            if (self.device.type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(f"state: {name} made in a capture")
+            self.__dict__[name] = value.to(self.device, copy=True)
+        elif buf.shape != value.shape or buf.dtype != value.dtype:
+            raise ValueError(f"state: {name} is {buf.dtype} "
+                             f"{tuple(buf.shape)}, got {value.dtype} "
+                             f"{tuple(value.shape)}")
+        else:
+            buf.copy_(value, non_blocking=True)
+
+    def buffers(self) -> list:
+        return [t for t in self.__dict__.values()
+                if isinstance(t, torch.Tensor)]
+
+
+def run_region(cache: GraphCache, key, fn, st: State, mesh=None,
+               keep=()) -> None:
+    """``fn(st)`` as the CUDA graph ``key`` of ``cache``, captured the
+    first time with the live ``mesh`` (the warm-up leaves ``st``'s
+    buffers and ``keep`` as it found them) and replayed."""
+    blk = cache.blocks.get(key)
+    if blk is None:
+        blk = cache.get(key, [], lambda _: fn(st) or [], mesh,
+                        keep=[*st.buffers(), *keep])
+    blk.replay()
+    cache.replays += 1

@@ -36,24 +36,29 @@ mesh.
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import NamedTuple
 
 import torch
 
 from otamg_torch import random as jr
 from otamg_torch.amg.graph import connected_components_bipartite, segment_sum
-from otamg_torch.amg.hierarchy import (_scalar, amg_solve, capacity_schedule,
+from otamg_torch.amg.hierarchy import (_level0_ops, _lvl_size,
+                                       _make_solve_cycle, _scalar,
+                                       _solve_step, amg_solve,
+                                       capacity_schedule, reads_nothing,
                                        setup_draws, setup_flat,
-                                       setup_hierarchy_generic, setup_unflat)
+                                       setup_hierarchy_generic, setup_unflat,
+                                       solve_retol, solve_start)
 from otamg_torch.config import AMGOptions, PCGOptions
 from otamg_torch.device import fetch
 from otamg_torch.dist import api
 from otamg_torch.dist.assembly import transform_sharded
-from otamg_torch.graphs import GraphCache
+from otamg_torch.graphs import Captured, GraphCache, State, run_region
 from otamg_torch.krylov.pcg import pcg
 from otamg_torch.opt.newton import NewtonSolveResult, NewtonSolver
 from otamg_torch.ot import operators as op
-from otamg_torch.sparse.segment import segment_plan
+from otamg_torch.sparse.segment import SegmentPlan, segment_plan
 
 
 def _transform(S, tvec, bk1, tk, rhs, p, q, mesh=None):
@@ -105,20 +110,43 @@ def _a0diag_hi(S, p, q):
     return torch.cat([q2 * col, row])
 
 
-@dataclasses.dataclass
 class RefineCounts:
     """What the mixed-precision Newton solves did since the last
-    ``reset()``: solves, refinement rounds (one fp32 correction solve
-    each), rounds reverted by the safeguard, and correction cycles summed
-    over the rounds."""
+    ``reset()``: ``solves``, refinement ``rounds`` (one fp32 correction
+    solve each), rounds ``reverted`` by the safeguard, and correction
+    ``cycles`` summed over the rounds.  The refinement loop counts its
+    rounds on the host (:meth:`add`); the blocked refinement
+    (:class:`Refinement`) adds them to a tensor on its device
+    (:meth:`on`) without a read.  A count sums both when it is read."""
 
-    solves: int = 0
-    rounds: int = 0
-    reverted: int = 0
-    cycles: int = 0
+    def __init__(self):
+        self.totals: dict = {}
+        self.reset()
 
     def reset(self) -> None:
-        self.solves = self.rounds = self.reverted = self.cycles = 0
+        self.solves = 0
+        self.host = [0, 0, 0]
+        for t in self.totals.values():
+            t.zero_()
+
+    def add(self, rounds: int, reverted: int, cycles: int) -> None:
+        for i, v in enumerate((rounds, reverted, cycles)):
+            self.host[i] += v
+
+    def on(self, device) -> torch.Tensor:
+        """The ``(rounds, reverted, cycles)`` totals kept on ``device``."""
+        t = self.totals.get(device)
+        if t is None:
+            t = self.totals[device] = torch.zeros(3, dtype=torch.int64,
+                                                  device=device)
+        return t
+
+    def _count(self, i: int) -> int:
+        return self.host[i] + sum(int(t[i]) for t in self.totals.values())
+
+    rounds = property(lambda self: self._count(0))
+    reverted = property(lambda self: self._count(1))
+    cycles = property(lambda self: self._count(2))
 
 
 refine_counts = RefineCounts()
@@ -164,10 +192,12 @@ class Front(NamedTuple):
     """What a Newton solve builds before its cycles (:func:`newton_front`):
     the transform's ``E`` (this rank's rows), ``g`` and ``kdiag``, the
     similarity ``q0`` and the whole ``p``; the component ``labels``,
-    ``nsp``, ``ncomp`` and ``last`` of :func:`_component_info`; and with
+    ``nsp``, ``ncomp`` and ``last`` of :func:`_component_info`; with
     ``opts.bigph`` the hierarchy ``lv1``, ``dense`` and the deep matrix
     ``deep`` of :func:`otamg_torch.amg.hierarchy.setup_solve` (None
-    otherwise)."""
+    otherwise); and ``graph``, the front's CUDA graph where it was
+    replayed (its static inputs ``S``, ``tvec``, ``bk1``, ``tk``, ``p``,
+    ``q`` and the draws are ``graph.inputs``), else None."""
 
     E: torch.Tensor
     g: torch.Tensor
@@ -181,6 +211,7 @@ class Front(NamedTuple):
     lv1: object = None
     dense: tuple | None = None
     deep: torch.Tensor | None = None
+    graph: Captured | None = None
 
 
 # The Newton solve's front (newton_front), one graph per front_signature.
@@ -266,9 +297,10 @@ def newton_front(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
         front_graphs.replays += 1
         out = blk.outputs
     else:
+        blk = None
         out = _front(S, tvec, bk1, tk, p, q, opts, lo, draws, exit_every,
                      dist_mesh)
-    front = Front(*out[:9])
+    front = Front(*out[:9], graph=blk)
     if not opts.bigph:
         return front
     m, n = api.global_rows(S), S.shape[1]
@@ -295,12 +327,22 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
     deflated fp32 cycle; a round that does not lower the residual is
     reverted and ends the loop.  Unlike the JAX package, the correction
     solve's right-hand side is scaled by a power of two to unit norm.
-    ``iters`` is the most correction cycles of any round; each round
-    costs one host read besides its solve's.  ``iters`` is a 0-d int64
+    ``iters`` is the most correction cycles of any round, a 0-d int64
     tensor on the device.  ``exit_every`` is the read interval of the
     loops inside (:func:`otamg_torch.amg.hierarchy.amg_solve`).
     ``dist_mesh`` is the mesh of the transform (the active one by
     default).
+
+    The rounds run in one of two ways, with the same result bit for bit.
+    With ``exit_every == 1`` (the loop driver), a loop on the host: one
+    read before the rounds and one after each, besides each correction
+    solve's own (:func:`amg_solve`).  With ``exit_every > 1`` and a
+    bigph hierarchy whose cycle reads nothing (the direct or fused
+    coarse solve; not the two-grid PCG), the regions of
+    :class:`Refinement`: one read a block of ``exit_every`` cycles and
+    none of the rounds' own, on a card CUDA graphs over the front's
+    buffers.  The non-bigph hierarchy and the two-grid cycle keep the
+    loop on every driver.
 
     The transform, the components and the bigph hierarchy with its deep
     matrix are the front of :func:`newton_front`, which reads nothing on
@@ -311,7 +353,7 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
     lo = hi if solve_dtype is None else getattr(torch, solve_dtype)
     fr = newton_front(S, tvec, bk1, tk, p, q, opts, key, solve_dtype,
                       exit_every, dist_mesh)
-    kdiag, q0, labels, nsp = fr.kdiag, fr.q0, fr.labels, fr.nsp
+    q0, labels, nsp = fr.q0, fr.labels, fr.nsp
     ncomp, last = fr.ncomp, fr.last
     p_rows, p = p, fr.p
     # amg_solve's options: the interval, named only for a blocked solve
@@ -347,86 +389,282 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
 
         return he_solve, ncomp, last
 
-    # The kernel-mode quantities, in the problem's precision.
-    n, N = q.shape[0], tvec.shape[0]
-    qp2 = torch.cat([q * q, p * p])
-    ghi = bk1 * qp2 + (kdiag + _a0diag_hi(S, p_rows, q)) / tk
-    p2, q2 = p_rows * p_rows, q * q
-    nsp_f = nsp.to(hi)
-    # The component labels are fixed for the Newton solve: one plan
-    # serves every sum of the refinement rounds.
-    plan = segment_plan(labels, N)
-    qsum = segment_sum(qp2 * nsp_f, labels, N, plan)
-    den = bk1 * qsum
-    safe_den = torch.where(den > 0, den, 1.0)
-    zeros_lo = torch.zeros(N, dtype=lo, device=S.device)
+    if (exit_every > 1 and opts.bigph
+            and reads_nothing(lv1, dense, fr.deep,
+                              opts.coarse_solver == "direct")):
+        return (Refinement(fr, (S, bk1, tk, p_rows, q), opts, refine,
+                           exit_every, lo), ncomp, last)
 
-    def ae_hi(v):
-        """``Ae v`` through the structured operator: two masked GEMVs."""
-        ev2 = q2 * api.psum(S.T @ (p2 * api.local_rows(v[n:])))
-        ev1 = api.all_gather_rows(p2 * (S @ (q2 * v[:n])))
-        return ghi * v - torch.cat([ev2, ev1]) / tk
-
-    def deflate(w):
-        mean = segment_sum(qp2 * w * nsp_f, labels, N, plan)
-        mean = torch.where(qsum > 0,
-                           mean / torch.where(qsum > 0, qsum, 1.0), 0.0)
-        return w - torch.where(nsp, mean[labels], 0.0) * nsp_f
+    km = KernelModes(fr, S, bk1, tk, p_rows, q)
+    k = types.SimpleNamespace()
+    km.setup(k)
+    zeros_lo = torch.zeros(tvec.shape[0], dtype=lo, device=S.device)
 
     def he_solve(rhs, kguess):
-        f = q0 * rhs
-        nf = torch.linalg.vector_norm(f)
-        safe_nf = torch.where(nf > 0, nf, 1.0)
-        segf = segment_sum(f * nsp_f, labels, N, plan)
-
-        def residual(w):
-            """``(wd, a, r)``: ``w`` deflated, its kernel coordinates
-            ``a(wd)`` per node, and ``r = f - bk1 Q Y a - Ae wd``; no
-            intermediate grows with ``a`` as ``bk1 -> 0``."""
-            wd = deflate(w)
-            segw = segment_sum(qp2 * wd * nsp_f, labels, N, plan)
-            a = torch.where(den > 0, (segf - bk1 * segw) / safe_den, 0.0)
-            a = torch.where(nsp, a[labels], 0.0)
-            return wd, a, f - bk1 * qp2 * a * nsp_f - ae_hi(wd)
-
         refine_counts.solves += 1
-        w = draw_guess(f, kguess).to(hi)
-        rel = torch.linalg.vector_norm(residual(w)[2]) / safe_nf
+        km.start(k, rhs)
+        w = draw_guess(k.f, kguess).to(hi)
+        rel = torch.linalg.vector_norm(km.residual(k, w)[2]) / k.safe_nf
         rounds, iters = 0, 0
         go = fetch(rel > opts.retol)
         while go and rounds < refine:
-            wd, _, r = residual(w)
-            # The correction solve sees r scaled by a power of two to
-            # unit norm: the same fp32 roundings, but no squares in its
-            # norms that underflow (a residual of 1e-20 is common at
-            # small bk1, and a backend that flushes subnormals would see
-            # a zero residual there).
-            nr = torch.linalg.vector_norm(r)
-            scale = torch.exp2(-torch.round(torch.log2(
-                torch.where(nr > 0, nr, 1.0))))
+            wd, _, r = km.residual(k, w)
+            scale = unit_scale(r)
             cor = amg_solve(lv1, dense, (r * scale).to(lo), zeros_lo, opts,
                             deflated=True, **solve_kw)
-            w2 = wd + cor.x.to(hi) / scale
-            rel2 = torch.linalg.vector_norm(residual(w2)[2]) / safe_nf
+            w2 = correct(wd, cor.x, scale)
+            rel2 = torch.linalg.vector_norm(km.residual(k, w2)[2]) / k.safe_nf
             ok, go, cycles = fetch(torch.stack([
                 (rel2 < rel).to(torch.int64),
                 (rel2 > opts.retol).to(torch.int64), cor.iters]))
             iters = max(iters, cycles)
-            refine_counts.rounds += 1
-            refine_counts.cycles += cycles
+            refine_counts.add(1, 1 - ok, cycles)
             if ok:
                 w, rel, rounds = w2, rel2, rounds + 1
             else:
                 # Safeguard: a correction that does not lower the true
                 # residual is reverted and ends the loop.
-                refine_counts.reverted += 1
                 w, rounds = wd, refine
-        wd, a, _ = residual(w)
+        wd, a, _ = km.residual(k, w)
         return (q0 * (wd + a),
-                torch.full((), iters, dtype=torch.int64, device=f.device),
+                torch.full((), iters, dtype=torch.int64, device=rhs.device),
                 rel)
 
     return he_solve, ncomp, last
+
+
+def unit_scale(r: torch.Tensor) -> torch.Tensor:
+    """The power of two that scales ``r`` to unit norm (1 for a zero
+    ``r``).  The correction solve sees ``r`` so scaled: the same fp32
+    roundings, but no squares in its norms that underflow (a residual of
+    1e-20 is common at small bk1, and a backend that flushes subnormals
+    would see a zero residual there)."""
+    nr = torch.linalg.vector_norm(r)
+    return torch.exp2(-torch.round(torch.log2(torch.where(nr > 0, nr, 1.0))))
+
+
+def correct(wd: torch.Tensor, x: torch.Tensor,
+            scale: torch.Tensor) -> torch.Tensor:
+    """A refinement round's new iterate: the deflated iterate ``wd`` plus
+    the correction solve's ``x`` scaled back by ``scale``.  Both
+    refinements form it here, so a test can put in a bad correction."""
+    return wd + x.to(wd.dtype) / scale
+
+
+class KernelModes:
+    """The mixed Newton solve's algebra in the problem's precision, on
+    the tensors of its front ``fr`` and the system's ``S``, ``bk1``,
+    ``tk``, this rank's ``p_rows`` and ``q``.  Its quantities are kept on
+    ``k``, a namespace or a region's :class:`~otamg_torch.graphs.State`:
+    :meth:`setup` sets the Newton system's, :meth:`start` a right-hand
+    side's."""
+
+    def __init__(self, fr: Front, S, bk1, tk, p_rows, q):
+        self.fr, self.S, self.bk1, self.tk = fr, S, bk1, tk
+        self.p_rows, self.q = p_rows, q
+        self.n, self.N = q.shape[0], fr.kdiag.shape[0]
+
+    def setup(self, k) -> None:
+        """The exact ``Ae`` diagonal ``ghi`` and the kernel-mode
+        quantities; the component labels are fixed for the Newton solve,
+        so one plan of them serves every sum."""
+        fr, bk1, q, N = self.fr, self.bk1, self.q, self.N
+        k.qp2 = torch.cat([q * q, fr.p * fr.p])
+        k.ghi = bk1 * k.qp2 + (fr.kdiag + _a0diag_hi(self.S, self.p_rows, q)
+                               ) / self.tk
+        k.p2, k.q2 = self.p_rows * self.p_rows, q * q
+        k.nsp_f = fr.nsp.to(self.S.dtype)
+        for name, t in zip(SegmentPlan._fields, segment_plan(fr.labels, N)):
+            setattr(k, "plan_" + name, t)
+        k.qsum = self.segsum(k, k.qp2 * k.nsp_f)
+        k.den = bk1 * k.qsum
+        k.safe_den = torch.where(k.den > 0, k.den, 1.0)
+
+    def start(self, k, rhs) -> None:
+        """``f``, its safe norm and its sums over the components."""
+        k.f = self.fr.q0 * rhs
+        nf = torch.linalg.vector_norm(k.f)
+        k.safe_nf = torch.where(nf > 0, nf, 1.0)
+        k.segf = self.segsum(k, k.f * k.nsp_f)
+
+    def segsum(self, k, x):
+        plan = SegmentPlan(*(getattr(k, "plan_" + name)
+                             for name in SegmentPlan._fields))
+        return segment_sum(x, self.fr.labels, self.N, plan)
+
+    def ae_hi(self, k, v):
+        """``Ae v`` through the structured operator: two masked GEMVs."""
+        S, n = self.S, self.n
+        ev2 = k.q2 * api.psum(S.T @ (k.p2 * api.local_rows(v[n:])))
+        ev1 = api.all_gather_rows(k.p2 * (S @ (k.q2 * v[:n])))
+        return k.ghi * v - torch.cat([ev2, ev1]) / self.tk
+
+    def deflate(self, k, w):
+        labels, nsp = self.fr.labels, self.fr.nsp
+        mean = self.segsum(k, k.qp2 * w * k.nsp_f)
+        mean = torch.where(k.qsum > 0,
+                           mean / torch.where(k.qsum > 0, k.qsum, 1.0), 0.0)
+        return w - torch.where(nsp, mean[labels], 0.0) * k.nsp_f
+
+    def residual(self, k, w):
+        """``(wd, a, r)``: ``w`` deflated, its kernel coordinates ``a(wd)``
+        per node, and ``r = f - bk1 Q Y a - Ae wd``; no intermediate grows
+        with ``a`` as ``bk1 -> 0``."""
+        labels, nsp, bk1 = self.fr.labels, self.fr.nsp, self.bk1
+        wd = self.deflate(k, w)
+        segw = self.segsum(k, k.qp2 * wd * k.nsp_f)
+        a = torch.where(k.den > 0, (k.segf - bk1 * segw) / k.safe_den, 0.0)
+        a = torch.where(nsp, a[labels], 0.0)
+        return wd, a, k.f - bk1 * k.qp2 * a * k.nsp_f - self.ae_hi(k, wd)
+
+
+# The blocked refinement's regions, one graph per (front graph, refine,
+# exit_every, region).
+refine_graphs = GraphCache()
+
+# What the block carries from step to step: the rounds' state, and what
+# a round's start sets (its iterate and scale, and the correction
+# solve's b, safe0 and amg_solve state).
+_ROUND = ("w", "rel", "rounds", "iters", "go_r")
+_START = ("wd", "scale", "b", "safe0", "x", "cr", "crel", "it", "go_c")
+
+
+class Refinement:
+    """The refinement rounds of a mixed ``he_solve`` (:func:`build_he_solver`)
+    on the blocked drivers, as two regions over a
+    :class:`~otamg_torch.graphs.State` that read nothing on the host:
+
+    * ``head``: the Newton system's kernel-mode quantities
+      (:class:`KernelModes`), the right-hand side's, the guess's
+      residual, and the first round's start: the residual scaled to unit
+      norm (:func:`unit_scale`) and the correction solve's first state
+      from a zero guess, as :func:`otamg_torch.amg.hierarchy.amg_solve`
+      makes it;
+    * ``block``: ``exit_every`` steps, each one cycle of the correction
+      solve where it goes on (amg_solve's step, frozen where it has
+      stopped) and, where it has stopped and the rounds go on, the
+      round's end, accepted or reverted as the loop does it, and the
+      next round's start, all under selects; then the solution at the
+      iterate so far and the flags of the correction and the rounds.
+
+    ``he_solve`` reads the flags after each block: one read a block,
+    none of the rounds' own, and the rounds run on inside a block.  The
+    result is the loop's bit for bit, its rounds, reverts and cycles
+    counted on the device (:data:`refine_counts`).  On a card each
+    region is one CUDA graph of :data:`refine_graphs`, captured against
+    the buffers of the front's CUDA graph in place (the front is not
+    copied) and a state of its own, keyed by the front's graph,
+    ``refine`` and ``exit_every``; elsewhere the regions run as they
+    are.  ``he_solve`` returns copies: the next solve rewrites the
+    state."""
+
+    def __init__(self, fr: Front, args, opts: AMGOptions, refine: int,
+                 exit_every: int, lo):
+        S, bk1, tk, p_rows, q = args
+        self.captured = fr.graph is not None
+        if self.captured:
+            S, _, bk1, tk, p_rows, q = fr.graph.inputs[:6]
+        self.opts, self.refine, self.exit_every = opts, refine, exit_every
+        self.lo, self.fr, self.bk1, self.tk = lo, fr, bk1, tk
+        self.km = KernelModes(fr, S, bk1, tk, p_rows, q)
+        self.mesh = api.live_mesh()
+        self.sig = (fr.graph, refine, exit_every)
+        self.st = (refine_graphs.state(self.sig, lambda: State(S.device))
+                   if self.captured else State(S.device))
+        self.counts = refine_counts.on(S.device)
+        self.cycle = _make_solve_cycle(_lvl_size(fr.lv1), len(fr.dense),
+                                       opts, True)
+        self.mv0 = _level0_ops(fr.lv1)[0]
+        self.retol_eff = solve_retol(opts, lo)
+
+    def __call__(self, rhs, kguess):
+        refine_counts.solves += 1
+        st = self.st
+        u = jr.uniform(kguess, rhs.shape, self.lo)
+        st.rhs = rhs
+        st.u = u.pin_memory() if self.captured else u
+        self.run("head", self.head)
+        while True:
+            self.run("block", self.block)
+            if not any(fetch(st.flags)):
+                break
+        return st.zeta.clone(), st.iters.clone(), st.rel.clone()
+
+    def run(self, name: str, fn) -> None:
+        if self.captured:
+            run_region(refine_graphs, (self.sig, name), fn, self.st,
+                       self.mesh, keep=(self.counts,))
+        else:
+            fn(self.st)
+
+    def begin(self, st, wd, r) -> list:
+        """A round's start from its deflated iterate ``wd`` and residual
+        ``r``: the values of :data:`_START`."""
+        scale = unit_scale(r)
+        b = (r * scale).to(self.lo)
+        (x, cr, crel, it, go), safe0 = solve_start(self.fr.lv1, b,
+                                                   torch.zeros_like(b),
+                                                   st.az)
+        return [wd, scale, b, safe0, x, cr, crel, it, go]
+
+    def head(self, st) -> None:
+        km, opts = self.km, self.opts
+        km.setup(st)
+        km.start(st, st.rhs)
+        # The guess as the loop draws it (Hybrid_AMG.m:69).
+        st.w = ((self.bk1 * self.tk) * st.u).to(st.f.dtype)
+        wd, _, r = km.residual(st, st.w)
+        st.rel = torch.linalg.vector_norm(r) / st.safe_nf
+        st.rounds = st.iters = torch.zeros((), dtype=torch.int64,
+                                           device=r.device)
+        go = ((st.rel > opts.retol) if self.refine > 0
+              else torch.zeros((), dtype=torch.bool, device=r.device))
+        st.go_r = go
+        # A times the correction solve's zero guess.
+        st.az = self.mv0(self.fr.lv1, torch.zeros_like(st.u))
+        for name, v in zip(_START, self.begin(st, wd, r)):
+            setattr(st, name, v & go if name == "go_c" else v)
+
+    def step(self, st, v: dict) -> dict:
+        """One step of the block on the values ``v`` of :data:`_ROUND`
+        and :data:`_START`; adds the rounds it ends to the counts."""
+        fr, opts, refine = self.fr, self.opts, self.refine
+        x, cr, crel, it, go_c = _solve_step(
+            self.cycle, self.mv0, fr.lv1, fr.dense, fr.deep, v["b"],
+            v["safe0"], self.retol_eff, opts.maxit,
+            tuple(v[name] for name in ("x", "cr", "crel", "it", "go_c")))
+        end = v["go_r"] & ~go_c
+        w2 = correct(v["wd"], x, v["scale"])
+        wd2, _, r2 = self.km.residual(st, w2)
+        rel2 = torch.linalg.vector_norm(r2) / st.safe_nf
+        ok = rel2 < v["rel"]
+        rounds = torch.where(end, torch.where(ok, v["rounds"] + 1, refine),
+                             v["rounds"])
+        go_r = torch.where(end, ok & (rel2 > opts.retol) & (rounds < refine),
+                           v["go_r"])
+        self.counts.add_(torch.stack([end.to(torch.int64),
+                                      (end & ~ok).to(torch.int64),
+                                      torch.where(end, it, 0)]))
+        out = dict(v, x=x, cr=cr, crel=crel, it=it, go_c=go_c,
+                   w=torch.where(end, torch.where(ok, w2, v["wd"]), v["w"]),
+                   rel=torch.where(end & ok, rel2, v["rel"]),
+                   rounds=rounds, go_r=go_r,
+                   iters=torch.where(end, torch.maximum(v["iters"], it),
+                                     v["iters"]))
+        start = end & go_r
+        for name, new in zip(_START, self.begin(st, wd2, r2)):
+            out[name] = torch.where(start, new, out[name])
+        return out
+
+    def block(self, st) -> None:
+        v = {name: getattr(st, name) for name in _ROUND + _START}
+        for _ in range(self.exit_every):
+            v = self.step(st, v)
+        for name in _ROUND + _START:
+            setattr(st, name, v[name])
+        wd, a, _ = self.km.residual(st, v["w"])
+        st.zeta = self.fr.q0 * (wd + a)
+        st.flags = torch.stack([v["go_c"], v["go_r"]])
 
 
 def make_aug_pcg_solver(p: torch.Tensor, q: torch.Tensor,

@@ -40,7 +40,7 @@ import torch
 
 from otamg_torch import random as jr
 from otamg_torch.device import fetch
-from otamg_torch.graphs import GraphCache
+from otamg_torch.graphs import GraphCache, State, run_region
 
 # The outer step's regions, one graph per (step_signature, region).
 step_graphs = GraphCache()
@@ -85,36 +85,6 @@ def armijo_steps(opts) -> list[float]:
     for _ in range(opts.ll_max):
         steps.append(steps[-1] * opts.delta)
     return steps
-
-
-class State:
-    """The static buffers of a step signature.  ``st.name = value``
-    copies ``value`` into the buffer ``name``, made on the state's
-    device the first time (never inside a capture); a buffer keeps its
-    shape and dtype.  ``owner`` is the step whose problem the buffers
-    hold."""
-
-    def __init__(self, device):
-        object.__setattr__(self, "device", device)
-        object.__setattr__(self, "owner", None)
-
-    def __setattr__(self, name, value):
-        buf = self.__dict__.get(name)
-        if buf is None:
-            if (self.device.type == "cuda"
-                    and torch.cuda.is_current_stream_capturing()):
-                raise RuntimeError(f"step state: {name} made in a capture")
-            self.__dict__[name] = value.to(self.device, copy=True)
-        elif buf.shape != value.shape or buf.dtype != value.dtype:
-            raise ValueError(f"step state: {name} is {buf.dtype} "
-                             f"{tuple(buf.shape)}, got {value.dtype} "
-                             f"{tuple(value.shape)}")
-        else:
-            buf.copy_(value, non_blocking=True)
-
-    def buffers(self) -> list:
-        return [t for t in self.__dict__.values()
-                if isinstance(t, torch.Tensor)]
 
 
 class StepFns(NamedTuple):
@@ -176,17 +146,10 @@ class Regions:
             setattr(st, name, v)
 
     def run(self, name: str, fn) -> None:
-        st = self.st
-        if not self.captured:
-            fn(st)
-            return
-        key = (self.sig, name)
-        blk = step_graphs.blocks.get(key)
-        if blk is None:
-            blk = step_graphs.get(key, [], lambda _: fn(st) or [],
-                                  self.mesh, keep=st.buffers())
-        blk.replay()
-        step_graphs.replays += 1
+        if self.captured:
+            run_region(step_graphs, (self.sig, name), fn, self.st, self.mesh)
+        else:
+            fn(self.st)
 
     def ssn(self, fns: StepFns, key) -> int | None:
         """The SsN loop: ``head``, then per SsN step the Newton solve,

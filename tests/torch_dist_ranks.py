@@ -208,6 +208,40 @@ def labels_rank(rank: int, world: int, url: str, outdir: str) -> None:
     _finish(rank, outdir, out)
 
 
+def refine_rank(rank: int, world: int, url: str, outdir: str) -> None:
+    """The blocked mixed Newton solve (``exit_every`` 3) of
+    :func:`front_arrays`' system on this rank's rows, the right-hand side
+    of ``tests/test_torch_refine_graph.py::system``: the replicated
+    solution, ``iters``, and the refinement's rounds and cycles."""
+    mesh = _start(rank, world, url)
+    from otamg_torch.config import AMGOptions, Cycle
+    from otamg_torch.dist import api
+    from otamg_torch.hybrid.solver import build_he_solver, refine_counts
+    from otamg_torch.random import PRNGKey
+
+    def rows(a):
+        r0, r1 = mesh.rows(a.shape[0])
+        return T(a)[r0:r1].contiguous()
+
+    def blocked():
+        S, tvec, bk1, tk, p, q = front_arrays()
+        rhs = np.random.default_rng(1).standard_normal(tvec.shape[0])
+        refine_counts.reset()
+        he, _, _ = build_he_solver(rows(S), T(tvec), T(bk1), T(tk), rows(p),
+                                   T(q), AMGOptions(cycle=Cycle.F,
+                                                    fuse_deep=True,
+                                                    coarse_target=6),
+                                   PRNGKey(3), "float32", 10, 3)
+        zeta, iters, _ = he(T(rhs), PRNGKey(5))
+        return (zeta.numpy(), int(iters), refine_counts.rounds,
+                refine_counts.cycles)
+
+    out: dict = {}
+    with api.use_mesh(mesh):
+        _case(out, "blocked", blocked)
+    _finish(rank, outdir, out)
+
+
 PARTS = ("main", "blocked1", "blocked2")
 """The groups of cases :func:`dist_rank` runs, each world spawned once
 per part so that the parts run side by side: the ``dist/`` functions
