@@ -91,6 +91,24 @@ Phases, each printing one JSON line with its numbers and seconds:
    and block replays a ``he_solve`` and its captures and replays; fails
    if a correction solve runs op by op there, or a refinement region is
    captured more than once a signature.  Fails if TF32 matmuls are on;
+   conditional — JAX's ``lax.cond`` (the defect repair) and the exits of
+   its ``while_loop``s (``amg_solve``, the Armijo search, the mixed
+   refinement) as CUDA-graph conditional nodes (``otamg_torch.graphs.
+   when``, ``csrc/conditional.cu``): one graph holding one node replayed
+   with its predicate true, false and true, bit for bit the body's
+   output, the untouched buffer and the select form's (the plain
+   version), with the node's device ms taken and skipped, the select
+   form's and the bound; then every blocked run of setup_graph and mixed
+   (each held there) with the bodies that ran (repairs built, AMG
+   cycles, refinement cycles, Armijo trials) beside its loop run's, the
+   repairs the setups' stats count and the inner iterations: the same
+   counts as the loop, a repair built for each fired, an AMG cycle an
+   inner iteration in f64 (none past an exit); then device ms by form,
+   select against conditional nodes: the front at 500^2 and 1024^2 with
+   its first key and with the first key whose setup fires the repair,
+   each bit for bit the eager front, and an AMG block (from its first
+   state and past its exit) and an Armijo block of a 3-iteration
+   Class-1 500^2 chunked solve, equal in both forms;
 8. roofline — the bytes model of the warm Class-1 500x500 f64 run of
    phase 5 (``otamg_torch.diag.roofline``) against the card's memory
    bandwidth; reported, not held;
@@ -146,9 +164,9 @@ Phases, each printing one JSON line with its numbers and seconds:
 Then a line with each path's ``label_rounds`` launches (fails where a path
 that runs its own front launched none, or any path ran a plain label
 round on the card), one JSON line listing every kernel (``ell_spmv``,
-``segment_sum``, ``mis_rounds``, ``coarse_eigh`` and ``label_rounds``,
-each with its launches by path), the card's name and power limit, and
-the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
+``segment_sum``, ``mis_rounds``, ``coarse_eigh``, ``label_rounds`` and
+``set_if``, each with its launches by path), the card's name and power
+limit, and the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits nonzero; without CUDA the script exits nonzero before printing
 any result.
 """
@@ -158,6 +176,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import glob
 import io
 import itertools
@@ -185,13 +204,16 @@ def emit(phase: str, **kv):
 
 def zero_counts():
     """Set the launch counts of ``segment_sum``, ``mis_rounds``,
-    ``coarse_eigh`` and ``label_rounds`` to 0, and the count of plain
-    label-propagation rounds on a card tensor (:func:`count_plain_rounds`)."""
+    ``coarse_eigh``, ``label_rounds`` and ``set_if`` to 0, and the count
+    of plain label-propagation rounds on a card tensor
+    (:func:`count_plain_rounds`)."""
+    from otamg_torch import graphs
     from otamg_torch.amg.kernels import coarse_eigh, label_rounds, mis_rounds
     from otamg_torch.sparse.segment import segment_sum
 
     segment_sum.launches = mis_rounds.launches = coarse_eigh.launches = 0
     label_rounds.launches = count_plain_rounds.calls = 0
+    graphs.cond_launches.clear()
 
 
 def counts() -> int:
@@ -199,6 +221,14 @@ def counts() -> int:
     from otamg_torch.sparse.segment import segment_sum
 
     return segment_sum.launches
+
+
+def set_if_launches() -> int:
+    """The ``set_if`` kernel's launches since :func:`zero_counts`: one a
+    conditional node captured (a replay re-runs it)."""
+    from otamg_torch import graphs
+
+    return sum(graphs.cond_launches.values())
 
 
 def setup_counts() -> dict:
@@ -320,7 +350,11 @@ def cuda_ms(fn, reps: int = REPS) -> float:
 def graph_ms(fn, reps: int = REPS) -> float:
     """Device milliseconds per call of ``fn()`` alone: ``reps`` calls
     captured in one CUDA graph, replayed between two events, divided by
-    ``reps``; median of ``ROUNDS`` replays."""
+    ``reps``; median of ``ROUNDS`` replays.  Captured through
+    ``graphs.capture``, so that ``graphs.when`` in ``fn`` makes
+    conditional nodes."""
+    from otamg_torch import graphs
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -328,7 +362,7 @@ def graph_ms(fn, reps: int = REPS) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with graphs.capture(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -785,15 +819,19 @@ def class1_opts(solve_dtype=None):
 
 def path_state() -> dict:
     """The counters a run's numbers are taken from (host reads, the
-    setup's stats, the CUDA graphs' captures and replays, the kernels'
-    launches)."""
+    setup's stats, the bodies of ``when`` that ran, the CUDA graphs'
+    captures and replays, the kernels' launches)."""
     from otamg_torch.amg.hierarchy import amg_graphs, setup_stats
     from otamg_torch.device import fetch
     from otamg_torch.hybrid.solver import front_graphs, refine_graphs
     from otamg_torch.opt.regions import step_graphs
 
+    from otamg_torch import graphs
+
     setups, repairs, rounds, bails = setup_stats.read()
+    bodies = {f"bodies_{k}": v for k, v in graphs.cond_counts.read().items()}
     return dict(reads=fetch.reads, setups=setups, repairs=repairs,
+                set_if=set_if_launches(), **bodies,
                 rounds=rounds, bails=bails,
                 front_captures=front_graphs.captures,
                 front_replays=front_graphs.replays,
@@ -820,7 +858,11 @@ def run_numbers(res, before, sync, secs) -> dict:
     front's CUDA graph replays (transform, components and setup), the
     AMG block's, the defect repairs; per
     SsN step (one Newton solve each) the outer step's region replays;
-    the MIS rounds per setup; the kernels' launches."""
+    the MIS rounds per setup; the bodies of ``when`` that ran
+    (``bodies``: repairs built, AMG cycles, refinement cycles, Armijo
+    trials) beside the solve's inner iterations; the kernels' launches."""
+    from otamg_torch.graphs import COND_NAMES
+
     d = {k: v - before[k] for k, v in path_state().items()}
     iters = max(res.iters, 1)
     newton = max(int(res.ssn_itnum.sum()), 1)
@@ -845,9 +887,12 @@ def run_numbers(res, before, sync, secs) -> dict:
         refine_replays=d["refine_replays"],
         refine_reads=d["refine_reads"],
         eager_correction_solves=d["eager_correction_solves"],
+        bodies={k: d[f"bodies_{k}"] for k in COND_NAMES},
+        inner_iters=int(res.inner_total),
         launches={k: d[k] for k in ("segment_sum", "mis_rounds",
                                     "coarse_eigh", "label_rounds",
-                                    "plain_label_rounds_on_card")})
+                                    "plain_label_rounds_on_card",
+                                    "set_if")})
 
 
 def run_class1(m, n, dev, opts, solve=None):
@@ -1097,8 +1142,8 @@ class Recorder:
     """Inside a ``with`` block, the inputs of the first ``mis_rounds``
     call of each size (``mis``), the first ``coarse_eigh`` call of each
     size (``eigh``), the first ``label_rounds`` call's mask (``mask``)
-    and the first ``newton_front`` call (``setup``: args and keywords),
-    cloned, where the package's modules look them up."""
+    and the first 8 ``newton_front`` calls (``setup``: args and
+    keywords), cloned, where the package's modules look them up."""
 
     def __enter__(self):
         from otamg_torch.amg import graph, hierarchy
@@ -1119,7 +1164,7 @@ class Recorder:
             return eigh(A)
 
         def setup_rec(*a, **kw):
-            if not self.setup:
+            if len(self.setup) < 8:
                 self.setup.append((tuple(map(keep, a)), dict(kw)))
             return setup(*a, **kw)
 
@@ -1613,7 +1658,8 @@ def phase_setup_kernels(card, dev):
     of Class-1 500^2 and 1024^2 and, for the labels, Class-2 500^2: a
     one-iteration loop-driver solve of each records the inputs
     (:class:`Recorder`), then :func:`mis_checks`, :func:`eigh_checks`,
-    :func:`label_checks` and :func:`front_checks`."""
+    :func:`label_checks` and :func:`front_checks`; also returns the
+    recordings."""
     caps = setup_sizes_checked()
     recs = {}
     for size in SETUP_SIZES:
@@ -1630,7 +1676,7 @@ def phase_setup_kernels(card, dev):
     masks = {f"class1_{size}": rec.mask[0] for size, rec in recs.items()}
     masks["class2_500"] = rec2.mask[0]
     return (mis_checks(card, dev, recs), eigh_checks(card, dev, recs),
-            label_checks(card, dev, masks), front_checks(dev, recs))
+            label_checks(card, dev, masks), front_checks(dev, recs), recs)
 
 
 def same_run(res, base) -> bool:
@@ -1686,6 +1732,8 @@ def phase_setup_graph(dev, loops):
         launches[f"class{cls}_{size}_{name}"] = nums["launches"]
         walls[(cls, size, name)] = secs
         row = dict(same_as_loop=same_run(res, base), loop=base_nums,
+                   bodies_held=bodies_held(f"class{cls}_{size}_{name}", cls,
+                                           nums, base_nums, f64=True),
                    **nums, **ref)
         emit(f"setup_graph_class{cls}_{size}", driver=name, **row)
         few_reads = (reads <= base_reads / 2 if cls == 1
@@ -1694,14 +1742,15 @@ def phase_setup_graph(dev, loops):
         got[0] += nums["front_captures"]
         got[1] += nums["amg_captures"]
         got[2].append(nums["step_captures"])
-        if not (row["same_as_loop"] and few_reads
+        if not (row["same_as_loop"] and few_reads and row["bodies_held"]
                 and nums["front_replays_per_newton_solve"] == 1.0
                 and nums["amg_replays_per_newton_solve"] >= 1.0
                 and nums["step_replays_per_ssn_step"] >= 1.0
                 and nums["setups"] == nums["newton_solves"]
                 and nums["launches"]["plain_label_rounds_on_card"] == 0):
             raise AssertionError(f"Class-{cls} {size}x{size} {name} driver "
-                                 "differs from the loop driver or does not "
+                                 "differs from the loop driver, runs other "
+                                 "bodies than the loop's or does not "
                                  "replay one front and the AMG block a "
                                  "Newton solve and the step's regions an "
                                  "SsN step")
@@ -1716,6 +1765,38 @@ def phase_setup_graph(dev, loops):
         raise AssertionError(f"not one front, one AMG block and one capture "
                              f"of each step region per signature: {captures}")
     return launches, walls
+
+
+# The bodies of ``when`` of every blocked run beside its loop run's, for
+# the conditional phase: path -> row.
+BODIES = {}
+
+
+def bodies_held(path, cls, nums, base, f64) -> bool:
+    """A blocked run's bodies of ``when`` (``nums["bodies"]``) against
+    its loop run's (``base``): the same four counts, a repair built for
+    each one the setups' stats count, and no cycle past an exit (f64
+    Class 1: an AMG cycle an inner iteration; mixed: an AMG cycle a
+    refinement cycle, and those the refinement's count).  Kept in
+    :data:`BODIES`."""
+    got, loop = nums["bodies"], base["bodies"]
+    checks = [got == loop, got["repairs"] == nums["repairs"],
+              loop["repairs"] == base["repairs"]]
+    if f64 and cls == 1:
+        checks += [got["amg_cycles"] == nums["inner_iters"],
+                   loop["amg_cycles"] == base["inner_iters"]]
+    if not f64:
+        checks += [got["amg_cycles"] == got["refine_cycles"]
+                   == nums["refine_counts"][3]]
+    if nums["front_captures"]:
+        checks.append(nums["launches"]["set_if"] > 0)
+    BODIES[path] = dict(bodies=got, loop_bodies=loop,
+                        repairs_fired=nums["repairs"],
+                        inner_iters=nums["inner_iters"],
+                        newton_solves=nums["newton_solves"],
+                        set_if_launches=nums["launches"]["set_if"],
+                        held=all(checks))
+    return all(checks)
 
 
 def blocked_solve(cls, name):
@@ -1815,6 +1896,8 @@ def phase_mixed(dev, f64_seconds, f64_blocked):
             same_as_loop=same_run(res, base),
             same_refine_counts=nums["refine_counts"]
             == base_nums["refine_counts"],
+            bodies_held=bodies_held(f"mixed_class{cls}_{size}_{name}", cls,
+                                    nums, base_nums, f64=False),
             loop_seconds=base_nums["seconds"],
             f64_seconds=f64_blocked[(cls, size, name)],
             refine_reads_per_he_solve=nums["refine_reads"] / solves,
@@ -1828,6 +1911,7 @@ def phase_mixed(dev, f64_seconds, f64_blocked):
         want_captures = 0 if sig in captured else 2
         captured.add(sig)
         if not (row["same_as_loop"] and row["same_refine_counts"]
+                and row["bodies_held"]
                 and nums["eager_correction_solves"] == 0
                 and nums["refine_reads"] == blocks
                 and nums["refine_captures"] == want_captures
@@ -1835,7 +1919,8 @@ def phase_mixed(dev, f64_seconds, f64_blocked):
                 and nums["launches"]["plain_label_rounds_on_card"] == 0):
             raise AssertionError(
                 f"mixed Class-{cls} {size}x{size} {name} differs from its "
-                "loop run, runs a correction solve op by op, reads besides "
+                "loop run or runs other bodies, runs a correction solve op "
+                "by op, reads besides "
                 "its refinement blocks or does not capture each refinement "
                 "region once per signature")
     emit("mixed_refine_caches", refine_captures=refine_graphs.captures,
@@ -2612,6 +2697,335 @@ def phase_dist(card, dev, runs1, warm1, grid_res, sparse_res, chunked500):
     return spmv, seg, setupk
 
 
+# The unit check's body: out = 2 x + 1 over this many f64.
+COND_N = 1 << 22
+
+
+def cond_unit(card, dev):
+    """One conditional node of ``graphs.when`` (the ``set_if`` launch of
+    ``csrc/conditional.cu`` and the IF node) whose body writes ``out = 2
+    x + 1`` in place: one graph holding it, replayed with ``pred`` true,
+    false and true again, gives the body's output, then the buffer as it
+    was, then the body's output, bit for bit the same graph captured in
+    the select form (``graphs.select_form``, the plain version).  Times,
+    each a graph of ``REPS`` such nodes replayed between events: ``ms``
+    with ``pred`` true, ``skip_ms`` false, ``plain_ms`` the select form;
+    the bound: ``x`` read and ``out`` written once."""
+    from otamg_torch import graphs
+    from otamg_torch.diag.roofline import hbm_rate
+
+    graphs.prepare(torch.device("cuda", torch.cuda.current_device()))
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(COND_N, dtype=torch.float64, generator=gen).to(dev)
+    out = torch.empty_like(x)
+    pred = torch.ones((), dtype=torch.bool, device=dev)
+
+    def node():
+        graphs.when(pred, lambda: torch.mul(x, 2, out=out).add_(1), [out])
+
+    def replays(graph):
+        got = []
+        for p in (True, False, True):
+            pred.fill_(p)
+            out.fill_(-1.0)
+            graph.replay()
+            got.append(out.clone())
+        return got
+
+    res = {}
+    for form in ("if_node", "select"):
+        ctx = (graphs.select_form() if form == "select"
+               else contextlib.nullcontext())
+        with ctx:
+            graph = torch.cuda.CUDAGraph()
+            with graphs.capture(graph):
+                node()
+        res[form] = replays(graph)
+        del graph
+    want = 2 * x + 1
+    ok = (torch.equal(res["if_node"][0], want)
+          and bool((res["if_node"][1] == -1.0).all())
+          and torch.equal(res["if_node"][2], want)
+          and all(torch.equal(a, b) for a, b in zip(res["if_node"],
+                                                    res["select"])))
+    err = max(float((a - b).abs().max()) for a, b in zip(res["if_node"],
+                                                         res["select"]))
+    pred.fill_(True)
+    ms = graph_ms(node)
+    pred.fill_(False)
+    skip_ms = graph_ms(node)
+    pred.fill_(True)
+    with graphs.select_form():
+        plain_ms = graph_ms(node)
+    row = dict(n=COND_N, dtype="float64", equal_to_select=ok,
+               max_abs_err=err, ms=ms, skip_ms=skip_ms, plain_ms=plain_ms,
+               bound_ms=2 * COND_N * 8 / hbm_rate(card) * 1e3,
+               bound_by="bytes", library_ms=None)
+    emit("conditional_unit", **row)
+    if not ok:
+        raise AssertionError("a conditional node's replays differ from its "
+                             "body's output or from the select form")
+    return row
+
+
+def repairs_of(args) -> int:
+    """The defect repairs that the eager ``newton_front(*args)`` fires."""
+    from otamg_torch.amg.hierarchy import setup_stats
+    from otamg_torch.hybrid import solver
+
+    before = setup_stats.read()[1]
+    solver.newton_front(*args)
+    return setup_stats.read()[1] - before
+
+
+def front_cases(systems, tries: int = 48) -> dict:
+    """Two sets of ``newton_front``'s arguments: the first Newton
+    system's (``systems[0]``), and the first that does the opposite
+    (fires the defect repair where it does not, or not where it does)
+    of the other recorded systems, then of the first with the keys
+    ``PRNGKey(1000 + i)``, ``i < tries``: ``{"repair": (args, what),
+    "no_repair": ...}``, ``what`` the recorded system's index or the
+    key's ``1000 + i``; a case is left out where none gives it."""
+    from otamg_torch import random as jr
+
+    fires = repairs_of(systems[0]) > 0
+    cases = {"repair" if fires else "no_repair": (systems[0], 0)}
+    others = [(a, f"system {j}") for j, a in enumerate(systems) if j]
+    others += [((*systems[0][:7], jr.PRNGKey(1000 + i), *systems[0][8:]),
+                f"key {1000 + i}") for i in range(tries)]
+    for a, what in others:
+        if (repairs_of(a) > 0) != fires:
+            cases["no_repair" if fires else "repair"] = (a, what)
+            break
+    return cases
+
+
+def replay_device_ms(replay, reps: int = 10, before=None) -> float:
+    """Device ms of ``replay()``: events around it, ``before()`` (a
+    reload, not timed) ahead of each; the median of ``reps``."""
+    times = []
+    for _ in range(reps):
+        if before is not None:
+            before()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def held_pools() -> set:
+    """The private memory pools (CUDA graphs' and their conditional
+    bodies') that hold memory after ``empty_cache``."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {tuple(seg["segment_pool_id"])
+            for seg in torch.cuda.memory_snapshot()} - {(0, 0)}
+
+
+def front_forms(recs):
+    """The Newton solve's front (``newton_front``, one CUDA graph) at
+    Class-1 500^2 and 1024^2 on the first Newton system of the loop run
+    (``recs``), with and without a defect repair (:func:`front_cases`),
+    each captured in the select form and with the conditional nodes: the
+    replay's device ms, the repairs built in it, and its outputs bit for
+    bit the eager front's.  Once the fronts are dropped
+    (``front_graphs.clear``), no memory pool of their conditional bodies
+    (``graphs.capture``'s, one a graph with a node) holds memory after
+    ``empty_cache``: the body pools and the graphs' own that held memory
+    after the captures, those left, and the reserved memory before and
+    after (a graph's own pool may keep a workspace that torch caches for
+    the capture's stream)."""
+    rows = {}
+    pools = held_pools()
+    reserved = torch.cuda.memory_reserved()
+    made, bodies = set(), set()
+    handle = torch.cuda.graph_pool_handle
+
+    def body_pool():
+        # graphs.capture makes a body pool with this call (the graphs'
+        # own pools are made inside torch).
+        pool = handle()
+        bodies.add(tuple(pool))
+        return pool
+
+    torch.cuda.graph_pool_handle = body_pool
+    try:
+        front_rows(recs, rows, pools, made)
+    finally:
+        torch.cuda.graph_pool_handle = handle
+    left = held_pools() & made
+    emit("conditional_pools", body_pools=len(made & bodies),
+         body_pools_left=len(left & bodies),
+         graph_pools=len(made - bodies), graph_pools_left=len(left - bodies),
+         reserved_mib_before=reserved / 2**20,
+         reserved_mib_after=torch.cuda.memory_reserved() / 2**20)
+    if not made & bodies or left & bodies:
+        raise AssertionError(f"{len(left & bodies)} of the "
+                             f"{len(made & bodies)} memory pools of the "
+                             "fronts' conditional bodies hold memory after "
+                             "front_graphs.clear()")
+    return rows
+
+
+def front_rows(recs, rows, pools, made):
+    """:func:`front_forms`' captures and replays: a row a size into
+    ``rows``, and into ``made`` the memory pools outside ``pools`` that
+    hold memory after each form's captures."""
+    from otamg_torch import graphs
+    from otamg_torch.amg import hierarchy
+    from otamg_torch.hybrid import solver
+
+    def flat(fr):
+        return [t.clone() for t in (*fr[:9], *(
+            t for lv in (fr.lv1, *fr.dense) for t in hierarchy._leaves(lv)),
+            fr.deep)]
+
+    for size, rec in recs.items():
+        args = rec.setup[0][0][:9]
+        found = front_cases([a[:9] for a, _ in rec.setup])
+        cases = {name: a for name, (a, _) in found.items()}
+        eager = {name: flat(solver.newton_front(*a))
+                 for name, a in cases.items()}
+        row = dict(size=size, cases={name: what for name, (_, what)
+                                     in found.items()})
+        for form in ("select", "if_node"):
+            solver.front_graphs.clear()
+            ctx = (graphs.select_form() if form == "select"
+                   else contextlib.nullcontext())
+            with ctx:
+                solver.newton_front(*args, exit_every=8)
+            for name, a in cases.items():
+                before = graphs.cond_counts.read()["repairs"]
+                fr = solver.newton_front(*a, exit_every=8)
+                built = graphs.cond_counts.read()["repairs"] - before
+                same = all(torch.equal(u, v)
+                           for u, v in zip(flat(fr), eager[name]))
+                ms = replay_device_ms(fr.graph.graph.replay)
+                row[f"{form}_{name}"] = dict(device_ms=ms,
+                                             repairs_built=built,
+                                             equal_to_eager=same)
+                if not same:
+                    raise AssertionError(f"the {size}x{size} front ({form}, "
+                                         f"{name}) differs from the eager "
+                                         "one")
+            fr = None
+            made |= held_pools() - pools
+        solver.front_graphs.clear()
+        emit("conditional_front", **row)
+        rows[size] = row
+
+
+def block_forms(dev):
+    """An AMG block and an Armijo block, each captured in the select
+    form and with the conditional nodes by a 3-iteration Class-1 500^2
+    chunked solve (equal bit for bit in the two forms): the AMG block's
+    replay from the last solve's first state (``exit_every`` steps, the
+    exit possibly inside) and from a state past its exit, and the
+    Armijo block (``trials``) from the state the solve's last one found,
+    each with its device ms and the bodies it ran (the block's first
+    trial runs outside its nodes, and is not counted here)."""
+    from otamg_torch import graphs
+    from otamg_torch.amg.hierarchy import amg_graphs
+    from otamg_torch.graphs import run_region
+    from otamg_torch.hybrid.solver import front_graphs
+    from otamg_torch.opt import regions
+    from otamg_torch.opt.regions import step_graphs
+
+    opts = dataclasses.replace(class1_opts(), maxit=3)
+    rows, results = {}, {}
+    load = graphs.Captured.load
+    for form in ("select", "if_node"):
+        for cache in (amg_graphs, front_graphs, step_graphs):
+            cache.clear()
+        loaded, trial_state = {}, {}
+
+        def recorded(self, inputs, loaded=loaded):
+            loaded[id(self)] = [t.clone() for t in inputs]
+            load(self, inputs)
+
+        def region(cache, key, fn, st, *a, **kw):
+            if key[1] == "trials":
+                trial_state.update(key=key, values=[
+                    (t, t.clone()) for t in st.buffers()])
+            return run_region(cache, key, fn, st, *a, **kw)
+
+        graphs.Captured.load = recorded
+        regions.run_region = region
+        try:
+            with (graphs.select_form() if form == "select"
+                  else contextlib.nullcontext()):
+                results[form], _, _ = run_class1(
+                    500, 500, dev, opts, blocked_solve(1, "chunked"))
+        finally:
+            graphs.Captured.load = load
+            regions.run_region = run_region
+        blk = next(iter(amg_graphs.blocks.values()))
+        start = loaded[id(blk)]
+
+        def ran(fn, slot):
+            before = graphs.cond_counts.read()[slot]
+            fn()
+            torch.cuda.synchronize()
+            return graphs.cond_counts.read()[slot] - before
+
+        def exited():
+            blk.load(start)
+            blk.inputs[-1].fill_(False)
+
+        row = dict(
+            amg_block_ms=replay_device_ms(blk.replay,
+                                          before=lambda: blk.load(start)),
+            amg_block_cycles=ran(lambda: (blk.load(start), blk.replay()),
+                                 "amg_cycles"),
+            amg_exited_ms=replay_device_ms(blk.replay, before=exited),
+            amg_exited_cycles=ran(lambda: (exited(), blk.replay()),
+                                  "amg_cycles"))
+        if trial_state:
+            blk_t = step_graphs.blocks[trial_state["key"]]
+
+            def restore():
+                for t, v in trial_state["values"]:
+                    t.copy_(v)
+
+            row.update(armijo_block_ms=replay_device_ms(blk_t.replay,
+                                                        before=restore),
+                       armijo_trials_run=ran(lambda: (restore(),
+                                                      blk_t.replay()),
+                                             "armijo_trials"),
+                       armijo_block_size=8)
+        rows[form] = row
+    for cache in (amg_graphs, front_graphs, step_graphs):
+        cache.clear()
+    same = same_run(results["if_node"], results["select"])
+    emit("conditional_blocks", equal_forms=same, **rows)
+    if not same:
+        raise AssertionError("the blocked solve in the select form and with "
+                             "conditional nodes differ")
+    return rows
+
+
+def phase_conditional(card, dev, recs):
+    """JAX's ``lax.cond`` and ``while_loop`` exits as CUDA-graph
+    conditional nodes: :func:`cond_unit`; the bodies of every blocked
+    run of phases setup_graph and mixed beside its loop run's
+    (:data:`BODIES`, each held there); :func:`front_forms` and
+    :func:`block_forms`.  Returns the ``set_if`` kernel's row."""
+    row = cond_unit(card, dev)
+    held = all(v["held"] for v in BODIES.values())
+    emit("conditional_solves", held=held, runs=BODIES)
+    if not held or not BODIES:
+        raise AssertionError(f"bodies of a blocked run not held: {BODIES}")
+    front_forms(recs)
+    block_forms(dev)
+    return row
+
+
+
 def phase_roofline(card, res, secs):
     """The bytes model of a Class-1 solve (``class1_opts()``) against
     the card's memory bandwidth; reported, not held."""
@@ -2663,7 +3077,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = phase_kernels(card, dev)
     seg_rows = phase_segment_sum(card, dev)
-    mis_rows, eigh_rows, label_rows, _ = phase_setup_kernels(card, dev)
+    mis_rows, eigh_rows, label_rows, _, recs = phase_setup_kernels(card,
+                                                                    dev)
     emit("kernel_checks", seconds=time.perf_counter() - t0)
     # Each path's launches: counts set to 0 just before it, read after.
     seg, setupk = {}, {}
@@ -2691,6 +3106,7 @@ def main() -> int:
         setupk[name] = {k: n[k] for k in ("mis_rounds", "coarse_eigh",
                                           "label_rounds",
                                           "plain_label_rounds_on_card")}
+    condk = {name: n["set_if"] for name, n in graph_launches.items()}
     emit("setup_graph", seconds=time.perf_counter() - t0)
     f64 = {(1,) + k: v for k, v in runs1.items()}
     f64.update({(2,) + k: v for k, v in runs2.items()})
@@ -2703,7 +3119,11 @@ def main() -> int:
         setupk[name] = {k: n[k] for k in ("mis_rounds", "coarse_eigh",
                                           "label_rounds",
                                           "plain_label_rounds_on_card")}
+    condk.update({name: n["set_if"] for name, n in mixed_launches.items()})
     emit("mixed_all", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cond_row = phase_conditional(card, dev, recs)
+    emit("conditional", seconds=time.perf_counter() - t0)
     phase_roofline(card, *warm1[:2])
     zero_counts()
     launches["sparse_setup"], _, seg["sparse_setup"], sparse_res = \
@@ -2797,7 +3217,19 @@ def main() -> int:
         "plain_ms": label_row["plain_ms"], "bound_ms": label_row["bound_ms"],
         "bound_by": label_row["bound_by"], "library_ms": None,
         "device_ms": label_row["device_ms"], "shape": label_row["shape"],
-        "rounds": label_row["rounds"]}]}))
+        "rounds": label_row["rounds"]}, {
+        "name": "set_if", "route": "cuda",
+        "source": "otamg_torch/csrc/conditional.cu",
+        "replaces": "otamg/amg/hierarchy.py:941 (the lax.cond of the "
+                    "defect repair) and the exits of the lax.while_loops "
+                    "of otamg/amg/hierarchy.py:1429, otamg/opt/apd.py:291, "
+                    "otamg/opt/apd2.py:302 and otamg/hybrid/solver.py:293; "
+                    "no Pallas kernel",
+        "launches": condk["class1_500_chunked"], "launches_by_path": condk,
+        "max_abs_err": cond_row["max_abs_err"], "ms": cond_row["ms"],
+        "plain_ms": cond_row["plain_ms"], "bound_ms": cond_row["bound_ms"],
+        "bound_by": cond_row["bound_by"], "library_ms": None,
+        "skip_ms": cond_row["skip_ms"], "n": cond_row["n"]}]}))
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

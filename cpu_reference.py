@@ -11,6 +11,8 @@ port's runs on the card.
     JAX_PLATFORMS=cpu python cpu_reference.py --grid 64 [--maxit 30]
     JAX_PLATFORMS=cpu python cpu_reference.py --sparse-setup 1048576 [--port]
     JAX_PLATFORMS=cpu python cpu_reference.py --cli
+    JAX_PLATFORMS=cpu python cpu_reference.py --size 1024 --repairs
+                                              [--solve-dtype float32]
 
 ``--size``: solves ``random_class1(PRNGKey(0), size, size)`` with the
 options ``chip_smoke.py`` gives the port (AMG inner solver, F-cycle,
@@ -50,6 +52,13 @@ coarse_target=64)``, right-hand side from ``default_rng(3)``; one JSON
 line with the level sizes, iterations, relative residual and the setup
 and solve seconds (``--port``: the port's solve on the CPU).
 
+``--repairs`` (Class 1, the JAX package's solve) adds how often the
+setup's ``lax.cond`` of the defect repair (``otamg/amg/hierarchy.py:
+941``) took the ideal branch: ``repairs`` (levels rebuilt),
+``repair_tests`` (coarsenings) and ``newton_solves``, counted by a host
+callback wrapped around the package's ``lax.cond``, which is left as it
+is.
+
 ``--cli``: the JAX package's CLI reports that ``chip_smoke.py``'s cli
 phase is held to (``CLI_REF``), one JSON line: ``python -m otamg.cli
 class1 --m 256 --n 256 --inner amg --cycle f`` and ``class2 --m 128 --n
@@ -81,6 +90,7 @@ def main() -> None:
     ap.add_argument("--maxit", type=int, default=100)
     ap.add_argument("--sparse-setup", type=int, default=0)
     ap.add_argument("--cli", action="store_true")
+    ap.add_argument("--repairs", action="store_true")
     args = ap.parse_args()
     jax.config.update("jax_enable_x64", True)
     if args.cli:
@@ -120,6 +130,7 @@ def main() -> None:
         opts = APDOptions(inner_solver=InnerSolver.AMG,
                           solve_dtype=args.solve_dtype,
                           amg=AMGOptions(cycle=Cycle.F, fuse_deep=True))
+    repairs = count_repairs() if args.repairs and not args.port else None
     t0 = time.perf_counter()
     res = solve_class1(prob, opts, verbose=args.verbose)
     print(json.dumps({
@@ -132,6 +143,9 @@ def main() -> None:
         "rel_kkt": [float(res.kkt_x[-1] / (1 + res.kkt_x[0])),
                     float(res.kkt_l[-1] / (1 + res.kkt_l[0]))],
         **refine_counts(args.port),
+        **({} if repairs is None else dict(
+            repairs=repairs["fired"], repair_tests=repairs["tests"],
+            newton_solves=int(res.ssn_itnum.sum()))),
         "seconds": time.perf_counter() - t0,
         "ssn_itnum": [int(v) for v in res.ssn_itnum]}))
 
@@ -181,6 +195,34 @@ def class2_reference(size: int, port: bool, parity: bool, polish: bool,
         "seconds": time.perf_counter() - t0,
         "ssn_itnum": [int(v) for v in res.ssn_itnum],
         "fxk_trajectory": [float(v) for v in res.fxk]}))
+
+
+def count_repairs() -> dict:
+    """Count the defect repair's branches in the JAX package's setup:
+    its one ``lax.cond`` (``otamg/amg/hierarchy.py:941``) is wrapped, as
+    the module looks it up, so that a host callback sees each
+    predicate.  Returns the running counts, ``fired`` and ``tests``."""
+    import types
+
+    from jax import lax
+
+    from otamg.amg import hierarchy
+
+    counts = {"fired": 0, "tests": 0}
+
+    def seen(pred):
+        counts["tests"] += 1
+        counts["fired"] += int(pred)
+
+    def cond(pred, *a, **kw):
+        jax.debug.callback(seen, pred)
+        return lax.cond(pred, *a, **kw)
+
+    proxy = types.SimpleNamespace(**{k: getattr(lax, k) for k in dir(lax)
+                                     if not k.startswith("__")})
+    proxy.cond = cond
+    hierarchy.lax = proxy
+    return counts
 
 
 def refine_counts(port: bool) -> dict:

@@ -25,8 +25,9 @@
 * **The bipartite setup reads nothing on the host** (what the JAX jit
   gives the whole SsN step): its random draws are made beforehand from
   the key (:func:`otamg_torch.random.setup_draws`), the MIS rounds are
-  one kernel launch, the defect repair builds both interpolations and
-  selects, and the coarsest eigendecomposition is a kernel whose
+  one kernel launch, the defect repair is a branch on the device
+  (:func:`otamg_torch.graphs.when`), and the coarsest eigendecomposition
+  is a kernel whose
   ``info`` stays on the card (:mod:`otamg_torch.amg.kernels`).  So on a
   card the setup and its deep matrix (:func:`setup_flat`) are captured
   with the rest of the Newton solve's front as one CUDA graph per
@@ -68,7 +69,8 @@ from otamg_torch.config import AMGOptions, Cycle
 from otamg_torch.device import fetch
 from otamg_torch.dist import api
 from otamg_torch.dist.spmv import halo_columns, halo_product
-from otamg_torch.graphs import GraphCache
+from otamg_torch.graphs import (AMG_CYCLES, REPAIRS, GraphCache, cond_counts,
+                                when)
 from otamg_torch.krylov.pcg import pcg
 from otamg_torch.sparse.kernels import ell_spmv
 from otamg_torch.sparse.segment import SegmentPlan, segment_plan, segment_sum2
@@ -798,8 +800,8 @@ def _coarsen_dense(A, active, labels, nsp, cap_next: int,
     the worst deviation from 1 of a near-singular row's prolongation
     sum, over rows whose component keeps a C node, and the int64 ``(3,)``
     stats (repair fired, MIS rounds, MIS bail-out).  A defect >= 0.1
-    rebuilds the level with ideal interpolation: both levels are built
-    and the defect picks one, with no host read."""
+    rebuilds the level with ideal interpolation under :func:`when` (in a
+    captured setup a conditional node), with no host read."""
     c = A.shape[0]
     dtype = A.dtype
     dev = A.device
@@ -861,10 +863,14 @@ def _coarsen_dense(A, active, labels, nsp, cap_next: int,
         Ac, P, defect = finish(standard_W())
         # Defect repair: when standard interpolation breaks P 1_c = 1_f
         # on a persisting near-singular component, the level is rebuilt
-        # with ideal interpolation (the branch JAX's lax.cond takes).
+        # with ideal interpolation (JAX's lax.cond), only then.
         repair = defect >= 0.1
-        Ac, P, defect = (torch.where(repair, b, a) for a, b in
-                         zip((Ac, P, defect), finish(ideal_W())))
+
+        def rebuild():
+            for dst, src in zip((Ac, P, defect), finish(ideal_W())):
+                dst.copy_(src)
+
+        when(repair, rebuild, (Ac, P, defect), count=(REPAIRS,))
     stats = torch.stack([repair.to(torch.int64), rounds.to(torch.int64),
                          bail.to(torch.int64)])
     return Ac, keep, labels_next, nsp_next, P, defect, stats
@@ -1132,27 +1138,38 @@ class AMGSolveResult(NamedTuple):
 
 
 def _solve_step(cycle, mv0, lv1, dense, deep_D, b, safe0, retol_eff: float,
-                maxit: int, state):
-    """One iteration of :func:`amg_solve` on ``state = (x, r, rel, it,
-    go)``, frozen where ``go`` is False."""
+                maxit: int, state, count=(AMG_CYCLES,),
+                going: bool = False) -> None:
+    """One iteration of :func:`amg_solve` on the buffers ``state = (x, r,
+    rel, it, go)`` in place, where ``go`` holds (:func:`when`: in a
+    captured block a conditional node, so no cycle runs past the exit);
+    a run adds 1 to the slots ``count`` of ``cond_counts``.  ``going``:
+    the caller has read ``go`` on the host and it holds, so the update
+    runs as it is."""
     x, r, rel, it, go = state
-    # The residual is carried: the post-update residual of one iteration
-    # is the next one's r.
-    x_new = x + cycle(lv1, dense, r, deep_D)
-    r_new = b - mv0(lv1, x_new)
-    res = _norm(lv1, r_new)
-    nr = _norm(lv1, r)
-    bad = ~torch.isfinite(res)
-    grew = bad | (res > nr)
-    x1 = torch.where(grew, x, x_new)
-    r1 = torch.where(grew, r, r_new)
-    rel1 = torch.where(grew, rel, res / safe0)
-    rho = torch.where(bad, 2.0, res / nr)
-    it1 = it + 1
-    done = (rel1 <= retol_eff) | (rho > 1.0) | (it1 >= maxit)
-    return (torch.where(go, x1, x), torch.where(go, r1, r),
-            torch.where(go, rel1, rel), torch.where(go, it1, it),
-            go & ~done)
+
+    def update():
+        # The residual is carried: the post-update residual of one
+        # iteration is the next one's r.
+        x_new = x + cycle(lv1, dense, r, deep_D)
+        r_new = b - mv0(lv1, x_new)
+        res = _norm(lv1, r_new)
+        nr = _norm(lv1, r)
+        bad = ~torch.isfinite(res)
+        grew = bad | (res > nr)
+        rho = torch.where(bad, 2.0, res / nr)
+        new = (torch.where(grew, x, x_new), torch.where(grew, r, r_new),
+               torch.where(grew, rel, res / safe0), it + 1)
+        done = (new[2] <= retol_eff) | (rho > 1.0) | (new[3] >= maxit)
+        for dst, src in zip(state, (*new, ~done)):
+            dst.copy_(src)
+
+    if going:
+        update()
+        for slot in count:
+            cond_counts.add(slot)
+    else:
+        when(go, update, state, count)
 
 
 def solve_start(lv1, b, guess, a_guess):
@@ -1261,9 +1278,11 @@ def amg_solve(lv1, dense: Sequence[DenseLevel], b: torch.Tensor,
     built here.
 
     The iterations run in blocks of ``exit_every`` with one host read a
-    block; the iterations after the exit inside a block leave ``x``,
-    ``rel`` and the count ``iters`` (kept on the device) as the exit set
-    them, so the block size does not change the result.  On a card with
+    block; each runs under :func:`when` on ``go``, so the steps after the
+    exit inside a block leave ``x``, ``rel`` and the count ``iters``
+    (kept on the device) as the exit set them, and the block size does
+    not change the result.  In a captured block each step is a
+    conditional node: no cycle runs past the exit.  On a card with
     ``exit_every > 1``, a bipartite hierarchy and a direct coarse solve,
     the block is one CUDA graph (:data:`amg_graphs`), captured at the
     first solve of its signature and replayed for every later one: each
@@ -1297,12 +1316,11 @@ def amg_solve(lv1, dense: Sequence[DenseLevel], b: torch.Tensor,
                                hier[nlv1 + i * nd:nlv1 + (i + 1) * nd])
                   for i in range(len(dense))]
             dD = hier[-3] if deep_D is not None else None
-            new = st
-            for _ in range(exit_every):
-                new = _solve_step(cycle, mv0, lv, dl, dD, hier[-2],
-                                  hier[-1], retol_eff, opts.maxit, new)
             # The state advances in place.
-            return [dst.copy_(src) for dst, src in zip(st, new)]
+            for _ in range(exit_every):
+                _solve_step(cycle, mv0, lv, dl, dD, hier[-2], hier[-1],
+                            retol_eff, opts.maxit, st)
+            return st
 
         hier = [*_leaves(lv1), *(t for lv in dense for t in _leaves(lv)),
                 *([deep_D] if deep_D is not None else []), b, safe0]
@@ -1322,12 +1340,16 @@ def amg_solve(lv1, dense: Sequence[DenseLevel], b: torch.Tensor,
         x, _, rel, it, _ = (t.clone() for t in blk.outputs)
         return AMGSolveResult(x, it, rel)
 
+    state = (state[0].clone(), *state[1:])   # guess is the caller's
+    going = False
     while True:
         for _ in range(exit_every):
-            state = _solve_step(cycle, mv0, lv1, dense, deep_D, b, safe0,
-                                retol_eff, opts.maxit, state)
+            _solve_step(cycle, mv0, lv1, dense, deep_D, b, safe0, retol_eff,
+                        opts.maxit, state, going=going)
         if not fetch(state[4]):
             break
+        # At one step a read, the read says that the next step goes on.
+        going = exit_every == 1
     x, _, rel, it, _ = state
     return AMGSolveResult(x, it, rel)
 

@@ -54,7 +54,9 @@ from otamg_torch.config import AMGOptions, PCGOptions
 from otamg_torch.device import fetch
 from otamg_torch.dist import api
 from otamg_torch.dist.assembly import transform_sharded
-from otamg_torch.graphs import Captured, GraphCache, State, run_region
+from otamg_torch.graphs import (AMG_CYCLES, REFINE_CYCLES, Captured,
+                                GraphCache, State, cond_counts, run_region,
+                                when)
 from otamg_torch.krylov.pcg import pcg
 from otamg_torch.opt.newton import NewtonSolveResult, NewtonSolver
 from otamg_torch.ot import operators as op
@@ -419,6 +421,7 @@ def build_he_solver(S, tvec, bk1, tk, p, q, opts: AMGOptions, key,
                 (rel2 > opts.retol).to(torch.int64), cor.iters]))
             iters = max(iters, cycles)
             refine_counts.add(1, 1 - ok, cycles)
+            cond_counts.add(REFINE_CYCLES, cycles)
             if ok:
                 w, rel, rounds = w2, rel2, rounds + 1
             else:
@@ -541,11 +544,13 @@ class Refinement:
       from a zero guess, as :func:`otamg_torch.amg.hierarchy.amg_solve`
       makes it;
     * ``block``: ``exit_every`` steps, each one cycle of the correction
-      solve where it goes on (amg_solve's step, frozen where it has
-      stopped) and, where it has stopped and the rounds go on, the
-      round's end, accepted or reverted as the loop does it, and the
-      next round's start, all under selects; then the solution at the
-      iterate so far and the flags of the correction and the rounds.
+      solve where it goes on (amg_solve's step) and, where it has
+      stopped and the rounds go on, the round's end, accepted or
+      reverted as the loop does it, and the next round's start, each
+      under :func:`otamg_torch.graphs.when` (on a card conditional
+      nodes: a step after the rounds' exit runs nothing); then the
+      solution at the iterate so far and the flags of the correction and
+      the rounds.
 
     ``he_solve`` reads the flags after each block: one read a block,
     none of the rounds' own, and the rounds run on inside a block.  The
@@ -625,46 +630,54 @@ class Refinement:
         for name, v in zip(_START, self.begin(st, wd, r)):
             setattr(st, name, v & go if name == "go_c" else v)
 
-    def step(self, st, v: dict) -> dict:
-        """One step of the block on the values ``v`` of :data:`_ROUND`
-        and :data:`_START`; adds the rounds it ends to the counts."""
-        fr, opts, refine = self.fr, self.opts, self.refine
-        x, cr, crel, it, go_c = _solve_step(
-            self.cycle, self.mv0, fr.lv1, fr.dense, fr.deep, v["b"],
-            v["safe0"], self.retol_eff, opts.maxit,
-            tuple(v[name] for name in ("x", "cr", "crel", "it", "go_c")))
-        end = v["go_r"] & ~go_c
-        w2 = correct(v["wd"], x, v["scale"])
+    def step(self, st) -> None:
+        """One step of the block on the state's buffers in place, where
+        the correction or the rounds go on (:func:`when`; in a captured
+        block conditional nodes): the correction cycle where it goes on
+        and then, where it has stopped and the rounds go on, the round's
+        end and the next round's start (:meth:`end_round`)."""
+        fr, opts = self.fr, self.opts
+        cycle = [st.x, st.cr, st.crel, st.it, st.go_c]
+        outs = [*(getattr(st, name) for name in _ROUND + _START),
+                self.counts]
+
+        def advance():
+            _solve_step(self.cycle, self.mv0, fr.lv1, fr.dense, fr.deep,
+                        st.b, st.safe0, self.retol_eff, opts.maxit, cycle,
+                        count=(AMG_CYCLES, REFINE_CYCLES))
+            when(st.go_r & ~st.go_c, lambda: self.end_round(st), outs)
+
+        when(st.go_c | st.go_r, advance, outs)
+
+    def end_round(self, st) -> None:
+        """A round's end, accepted or reverted as the loop does it, with
+        its counts, and where the rounds go on the next round's start."""
+        opts, refine = self.opts, self.refine
+        w2 = correct(st.wd, st.x, st.scale)
         wd2, _, r2 = self.km.residual(st, w2)
         rel2 = torch.linalg.vector_norm(r2) / st.safe_nf
-        ok = rel2 < v["rel"]
-        rounds = torch.where(end, torch.where(ok, v["rounds"] + 1, refine),
-                             v["rounds"])
-        go_r = torch.where(end, ok & (rel2 > opts.retol) & (rounds < refine),
-                           v["go_r"])
-        self.counts.add_(torch.stack([end.to(torch.int64),
-                                      (end & ~ok).to(torch.int64),
-                                      torch.where(end, it, 0)]))
-        out = dict(v, x=x, cr=cr, crel=crel, it=it, go_c=go_c,
-                   w=torch.where(end, torch.where(ok, w2, v["wd"]), v["w"]),
-                   rel=torch.where(end & ok, rel2, v["rel"]),
-                   rounds=rounds, go_r=go_r,
-                   iters=torch.where(end, torch.maximum(v["iters"], it),
-                                     v["iters"]))
-        start = end & go_r
-        for name, new in zip(_START, self.begin(st, wd2, r2)):
-            out[name] = torch.where(start, new, out[name])
-        return out
+        ok = rel2 < st.rel
+        rounds = torch.where(ok, st.rounds + 1, refine)
+        self.counts.add_(torch.stack([torch.ones_like(st.it),
+                                      (~ok).to(torch.int64), st.it]))
+        st.iters = torch.maximum(st.iters, st.it)
+        st.w = torch.where(ok, w2, st.wd)
+        st.rel = torch.where(ok, rel2, st.rel)
+        st.rounds = rounds
+        st.go_r = ok & (rel2 > opts.retol) & (rounds < refine)
+
+        def start():
+            for name, new in zip(_START, self.begin(st, wd2, r2)):
+                setattr(st, name, new)
+
+        when(st.go_r, start, [getattr(st, name) for name in _START])
 
     def block(self, st) -> None:
-        v = {name: getattr(st, name) for name in _ROUND + _START}
         for _ in range(self.exit_every):
-            v = self.step(st, v)
-        for name in _ROUND + _START:
-            setattr(st, name, v[name])
-        wd, a, _ = self.km.residual(st, v["w"])
+            self.step(st)
+        wd, a, _ = self.km.residual(st, st.w)
         st.zeta = self.fr.q0 * (wd + a)
-        st.flags = torch.stack([v["go_c"], v["go_r"]])
+        st.flags = torch.stack([st.go_c, st.go_r])
 
 
 def make_aug_pcg_solver(p: torch.Tensor, q: torch.Tensor,

@@ -57,6 +57,7 @@ from otamg_torch import random as jr
 from otamg_torch.config import APDOptions, InnerSolver
 from otamg_torch.device import fetch
 from otamg_torch.dist import api
+from otamg_torch.graphs import ARMIJO_TRIALS, cond_counts
 from otamg_torch.opt.admm import warmup_class1
 from otamg_torch.opt.newton import NewtonSolver, make_pcg_solver
 from otamg_torch.opt.regions import (Regions, StepFns, armijo_steps,
@@ -198,6 +199,7 @@ def armijo(trial, opts: APDOptions):
     armijo`)."""
     for ll, step in enumerate(armijo_steps(opts)):
         accept, carry = trial(step)
+        cond_counts.add(ARMIJO_TRIALS)
         # A non-finite merit is "not yet acceptable".
         if ll >= opts.ll_max or fetch(accept):
             return carry

@@ -13,7 +13,9 @@ host reads as a few regions (:meth:`Regions.ssn`):
 * ``first``: ``A^T zeta``, the merit at the old iterate and the first
   Armijo trial (the full step);
 * ``trials``: the next ``exit_every`` trials, the first one's index an
-  input;
+  input, each after the first under :func:`otamg_torch.graphs.when` (on
+  a card a conditional node): none runs after an accepted one or after
+  trial ``ll_max``;
 * ``accept_pre`` and ``accept_tail``: the accepted trial, the reject
   selects and the counters, then the next SsN step's ``pre`` or the
   step's tail (the new iterate, the restart and the record);
@@ -33,6 +35,7 @@ convergence flag, one read per Armijo block, and the Newton solve's.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -40,7 +43,8 @@ import torch
 
 from otamg_torch import random as jr
 from otamg_torch.device import fetch
-from otamg_torch.graphs import GraphCache, State, run_region
+from otamg_torch.graphs import (ARMIJO_TRIALS, GraphCache, State,
+                                cond_counts, run_region, when)
 
 # The outer step's regions, one graph per (step_signature, region).
 step_graphs = GraphCache()
@@ -200,9 +204,9 @@ class Regions:
         ``exit_every`` trials a block, each block one read of its
         acceptance and exit tests.  The accepted trial (trial
         ``ll_max`` when none passes) leaves its step in ``st.step`` and
-        its ``||F||`` in ``st.nF_sel``; returns its exit test.  A block
-        that runs past ``ll_max`` computes the trials after it and
-        ignores them."""
+        its ``||F||`` in ``st.nF_sel``; returns its exit test.  A block's
+        trials after an accepted one or after trial ``ll_max`` do not run
+        (:func:`when`), and read as not accepted."""
         opts, E = self.opts, self.exit_every
 
         def first(st):
@@ -217,17 +221,36 @@ class Regions:
             steps, nu_steps = st.armijo.index_select(1, idx)
             last = idx >= opts.ll_max
             steps_lo = steps.to(st.zeta.dtype)
-            outs = [fns.trial(st, steps[j], steps_lo[j], nu_steps[j])
-                    for j in range(E)]
-            accept = torch.stack([o[0] for o in outs])
-            st.flags_blk = torch.stack(
-                [accept, torch.stack([o[1] for o in outs])], 1).reshape(-1)
-            j = torch.argmax((accept | last).to(torch.int32))
+            # A trial that does not run leaves a false accept.
+            st.accept = torch.zeros(E, dtype=torch.bool, device=idx.device)
+            st.done = torch.zeros(E, dtype=torch.bool, device=idx.device)
+            st.nFs = torch.zeros(E, dtype=st.nFk_old.dtype,
+                                 device=idx.device)
+
+            def run_trial(j):
+                out = fns.trial(st, steps[j], steps_lo[j], nu_steps[j])
+                for dst, src in zip((st.accept[j], st.done[j], st.nFs[j]),
+                                    out):
+                    dst.copy_(src)
+                # Trial j + 1 runs unless this one is accepted or is
+                # the last.
+                st.more = ~out[0] & ~last[j]
+
+            # Trial j runs where every earlier one of the block failed
+            # and none of them was the last (:func:`when`; captured, a
+            # conditional node).
+            run_trial(0)
+            for j in range(1, E):
+                when(st.more, functools.partial(run_trial, j),
+                     [st.accept, st.done, st.nFs, st.more],
+                     count=(ARMIJO_TRIALS,))
+            st.flags_blk = torch.stack([st.accept, st.done], 1).reshape(-1)
+            j = torch.argmax((st.accept | last).to(torch.int32))
             st.step = steps.index_select(0, j.reshape(1))[0]
-            st.nF_sel = torch.stack([o[2] for o in outs]).index_select(
-                0, j.reshape(1))[0]
+            st.nF_sel = st.nFs.index_select(0, j.reshape(1))[0]
 
         self.run("first", first)
+        cond_counts.add(ARMIJO_TRIALS)
         got = fetch(self.st.flags)
         ll, n = 0, 1
         while True:
@@ -237,4 +260,5 @@ class Regions:
             ll, n = ll + n, E
             self.load(ll=ll)
             self.run("trials", block)
+            cond_counts.add(ARMIJO_TRIALS)   # the block's first trial
             got = fetch(self.st.flags_blk)

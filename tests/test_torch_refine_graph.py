@@ -21,6 +21,7 @@ import torch
 
 import otamg_torch.config as tcfg
 import torch_dist_ranks as R
+from otamg_torch import graphs
 from otamg_torch import random as tr
 from otamg_torch.device import fetch
 from otamg_torch.hybrid import pot as tpot
@@ -220,7 +221,8 @@ def test_pot_two_solves_on_one_front(exit_every):
 
 @pytest.fixture
 def guarded(monkeypatch):
-    """Every refinement region runs with the host reads patched to raise;
+    """Every refinement region runs with the host reads patched to raise,
+    but for the predicate of a ``when`` (on a card a conditional node);
     returns the count of the regions run, by name."""
     inside = [False]
     ran = collections.Counter()
@@ -235,6 +237,17 @@ def guarded(monkeypatch):
     for name in HOST_READS:
         monkeypatch.setattr(torch.Tensor, name,
                             refuse(name, getattr(torch.Tensor, name)))
+
+    def branch(pred):
+        # when's branch on the CPU; on a card a conditional node.
+        was, inside[0] = inside[0], False
+        try:
+            return holds(pred)
+        finally:
+            inside[0] = was
+
+    holds = graphs._holds
+    monkeypatch.setattr(graphs, "_holds", branch)
     monkeypatch.setattr(thyb, "fetch", refuse("fetch", thyb.fetch))
     run = thyb.Refinement.run
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import otamg_torch.config as tcfg
+from otamg_torch import graphs
 from otamg_torch import random as tr
 from otamg_torch.opt import apd, apd2, regions
 from otamg_torch.ot import capacitated_problem, random_class1, random_class2
@@ -48,7 +49,8 @@ def case(name, device="cpu"):
 
 @pytest.fixture
 def guarded(monkeypatch):
-    """Every region runs with the host reads patched to raise; returns
+    """Every region runs with the host reads patched to raise, but for
+    the predicate of a ``when`` (on a card a conditional node); returns
     the count of the regions run, by name."""
     inside = [False]
     ran = collections.Counter()
@@ -63,6 +65,17 @@ def guarded(monkeypatch):
     for name in HOST_READS:
         monkeypatch.setattr(torch.Tensor, name,
                             refuse(name, getattr(torch.Tensor, name)))
+
+    def branch(pred):
+        # when's branch on the CPU; on a card a conditional node.
+        was, inside[0] = inside[0], False
+        try:
+            return holds(pred)
+        finally:
+            inside[0] = was
+
+    holds = graphs._holds
+    monkeypatch.setattr(graphs, "_holds", branch)
     for mod in (apd, apd2, regions):
         monkeypatch.setattr(mod, "fetch", refuse("fetch", mod.fetch))
     run = regions.Regions.run
