@@ -3,6 +3,7 @@
     python3 chip_profile.py [--class2] [--size 500] [--outer 10]
                             [--solve-dtype float32] [--out TABLE.txt]
                             [--driver loop|chunked|fused] [--chunk 8]
+                            [--split]
     python3 chip_profile.py --sparse-setup 1048576
     python3 chip_profile.py --shard [--driver chunked] [--class2] ...
 
@@ -43,6 +44,10 @@ refinement rounds around the correction solves), ``refinement`` (mixed
 on the chunked and fused drivers: the whole refinement, its regions'
 CUDA graph replays, their input copies and one read a block),
 ``build_he_solver`` (the rest of a Newton system's set-up), ``merit`` (the Armijo merit, where it runs op by op),
+``smoother`` (``_projected_smooth_bip``, the bipartite level's
+smoothing calls), ``residual_restrict`` (the cycle's level-0 residual
+and its restriction), ``deep_gemv`` (the fused deep tape's GEMV),
+``prolong`` (the prolongation to level 0) and ``coarse_solve``,
 ``outer_step`` (the rest of the SsN step and the outer step; on the
 chunked and fused drivers the replays of the step's regions, whose
 graphs hold the merit, and the copies into them) and ``driver`` (the
@@ -53,7 +58,12 @@ id).  Each layer also counts the card's host syncs
 (``torch.cuda.set_sync_debug_mode("warn")``: reads, copies from pageable
 memory, other synchronising calls) and the copies from pageable host
 memory to the card (the profiler's ``Memcpy HtoD (Pageable -> Device)``
-activities), per outer iteration.  With ``--sparse-setup N`` the
+activities), per outer iteration.  Where the cycle runs inside a CUDA
+graph (``amg_solve`` and the mixed ``refinement`` on the chunked and
+fused drivers) its kernels belong to the graph's launch; ``--split``
+adds ``cycle_split_per_outer_iter``: the device ms of the five cycle
+ranges above, graphs included, each found between two marker kernels
+(:class:`Markers`), and the markers' own ms.  With ``--sparse-setup N`` the
 script profiles ``chip_smoke.py``'s
 sparse-setup solve at ``N`` rows instead (one warm-up run first), with
 the ranges ``setup_hierarchy_sparse``, ``amg_solve``, ``smoother``,
@@ -116,6 +126,20 @@ SOLVE_LAYERS = (
     ("otamg_torch.opt.apd", "_merit", "merit"),
     ("otamg_torch.opt.apd2", "_merit2", "merit"),
 )
+# The AMG cycle's pieces at the bipartite level, inside ``amg_solve`` and
+# the mixed ``refinement`` (``--split``).
+CYCLE_LAYERS = (
+    ("otamg_torch.amg.hierarchy", "_projected_smooth_bip", "smoother"),
+    ("otamg_torch.amg.hierarchy", "bip_residual_restrict",
+     "residual_restrict"),
+    ("otamg_torch.amg.hierarchy", "deep_apply", "deep_gemv"),
+    ("otamg_torch.amg.hierarchy", "bip_prolong", "prolong"),
+    ("otamg_torch.amg.hierarchy", "_coarse_solve", "coarse_solve"),
+)
+# One marker dtype a cycle layer: a one-element fill of a type the solve
+# never fills, so its kernel's name marks the layer's start and end.
+MARKER_DTYPES = (torch.complex128, torch.complex64, torch.float16,
+                 torch.bfloat16, torch.int16)
 SPARSE_LAYERS = (
     ("otamg_torch.amg.hierarchy", "_projected_smooth", "smoother"),
     ("otamg_torch.amg.hierarchy", "_coarse_solve", "coarse_solve"),
@@ -161,7 +185,7 @@ class Layers:
                 self.patch(modname, attr, self.ranged(name, fn))
 
     def install_solve(self):
-        self.install(SOLVE_LAYERS)
+        self.install(SOLVE_LAYERS + CYCLE_LAYERS)
         from otamg_torch.amg import hierarchy
         from otamg_torch.hybrid import pot, solver
         from otamg_torch.opt import apd, apd2
@@ -256,6 +280,85 @@ class Layers:
         if hasattr(self, "_syncs"):
             self._syncs.__exit__(None, None, None)
             del self._syncs
+
+
+class Markers:
+    """``--split``: each function of :data:`CYCLE_LAYERS` launches a
+    marker kernel before and after it (a fill of one element, of a
+    dtype of its own), so the kernels between two markers are the
+    layer's whether they run eagerly or from a CUDA graph or a
+    conditional node's body, where the profiler ties every kernel to
+    the graph's launch.  Installed before the warm-up solve, so the
+    graphs it captures hold the markers too; the markers' own device
+    time is reported apart."""
+
+    def __init__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.saved = []
+        self.bufs = {dt: torch.zeros(1, dtype=dt, device="cuda")
+                     for dt in MARKER_DTYPES}
+        # Each marker's kernel name, as the profiler reports it.
+        self.names = {}
+        for (_, _, layer), dt in zip(CYCLE_LAYERS, MARKER_DTYPES):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                self.bufs[dt].fill_(1)
+                torch.cuda.synchronize()
+            got = {e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA}
+            if len(got) != 1:
+                raise RuntimeError(f"marker {dt}: kernels {sorted(got)}")
+            self.names[got.pop()] = layer
+
+    def install(self):
+        for ((modname, attr, _), dt) in zip(CYCLE_LAYERS, MARKER_DTYPES):
+            mod = importlib.import_module(modname)
+            fn = getattr(mod, attr)
+            buf = self.bufs[dt]
+
+            def marked(*a, _fn=fn, _buf=buf, **kw):
+                _buf.fill_(1)
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    _buf.fill_(1)
+
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, marked)
+
+    def restore(self):
+        for mod, attr, fn in reversed(self.saved):
+            setattr(mod, attr, fn)
+        self.saved.clear()
+
+    def split(self, kernels, per: float) -> dict:
+        """Device ms per outer iteration of each cycle layer: the
+        kernels in time order (one stream), each to the innermost layer
+        whose markers enclose it; ``markers`` is the markers' own time.
+        A marker opens its layer, or closes it where it is the innermost
+        open one."""
+        dev = collections.Counter()
+        calls = collections.Counter()
+        stack = []
+        for e in sorted(kernels, key=lambda e: e.time_range.start):
+            dur = e.time_range.end - e.time_range.start
+            layer = self.names.get(e.name)
+            if layer is None:
+                if stack:
+                    dev[stack[-1]] += dur
+                continue
+            dev["markers"] += dur
+            if stack and stack[-1] == layer:
+                stack.pop()
+                calls[layer] += 1
+            else:
+                stack.append(layer)
+        out = {k: dict(device_ms=dev[k] / 1e3 / per,
+                       calls=calls[k] / per) for k in
+               [*(n for *_, n in CYCLE_LAYERS), "markers"]}
+        out["unclosed"] = len(stack)
+        return out
 
 
 def layer_table(prof, reads, per: float, names, syncs=None) -> dict:
@@ -386,6 +489,9 @@ def main() -> int:
                     choices=["loop", "chunked", "fused"])
     ap.add_argument("--chunk", type=int, default=8)
     ap.add_argument("--sparse-setup", type=int, default=None)
+    ap.add_argument("--split", action="store_true",
+                    help="split the AMG cycle's device time by piece "
+                         "with marker kernels, graphs included")
     ap.add_argument("--shard", action="store_true",
                     help="row-shard the problem over a one-rank NCCL group "
                          "and report each layer's collectives")
@@ -434,6 +540,10 @@ def profile_solve(args, smi, solve, prob, opts) -> int:
     from otamg_torch.hybrid.solver import refine_counts
     from otamg_torch.opt.regions import step_graphs
 
+    markers = None
+    if args.split:
+        markers = Markers()
+        markers.install()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     full = solve(prob, opts)
@@ -459,8 +569,10 @@ def profile_solve(args, smi, solve, prob, opts) -> int:
             wall = time.perf_counter() - t0
     finally:
         layers.restore()
+        if markers is not None:
+            markers.restore()
     reads = fetch.reads - reads0
-    names = {n for *_, n in SOLVE_LAYERS} | {
+    names = {n for *_, n in SOLVE_LAYERS + CYCLE_LAYERS} | {
         "deep_matrix", "he_solve", "build_he_solver", "outer_step",
         "refinement"}
     kernels = [e for e in prof.events()
@@ -508,6 +620,8 @@ def profile_solve(args, smi, solve, prob, opts) -> int:
         "reverted_rounds": refine_counts.reverted,
         "newton_solves": refine_counts.solves,
         "layers_per_outer_iter": table,
+        "cycle_split_per_outer_iter": (markers.split(kernels, res.iters)
+                                       if markers is not None else None),
         "top_ops_self_device_ms": [
             [a.key, a.self_device_time_total / 1e3, a.count]
             for a in top[:12]]}))

@@ -47,7 +47,11 @@ Phases, each printing one JSON line with its numbers and seconds:
    ``torch.cuda.set_sync_debug_mode("error")``, then captured and
    replayed, equal to the eager front bit for bit with no read or sync
    around the replay, with the eager and replay times (the replay's host
-   time split) and the defect repair's extra device ms;
+   time split) and the defect repair's extra device ms; then
+   ``bip_smooth`` (``csrc/bip_smooth.cu``, the bipartite smoother)
+   against ``bip_smooth_plain`` on the levels and vectors of the first
+   smoothing calls of those solves and of a mixed Class-1 500x500 one
+   (fp32, deflated) and at the layouts' edges (:func:`phase_bip_smooth`);
 4. sparse   — ``amg_solve_matrix`` on the 128x128 grid Laplacian + 0.01 I
    as an ELL ``CSR`` (the path that runs the kernel), 30 iterations, with
    its launches, checked against the same solve through the plain SpMV;
@@ -157,16 +161,23 @@ Phases, each printing one JSON line with its numbers and seconds:
    captured block, a captured front and a captured step region hold a
    collective, each Newton solve replays one front and each SsN step
    the step's regions; (i) the chunked driver's mixed Class-1 500x500
-   solve on the sharded problem held bit for bit to phase 7's unsharded
-   chunked mixed run, refinement counts included, its refinement
+   solve on the sharded problem held to ``MIXED_REF`` and to phase 7's
+   unsharded chunked mixed run in its counts (the sharded smoother is
+   the plain one by configuration, the unsharded one the kernel: their
+   bits differ by rounding), and over 15 outer iterations bit for bit
+   to the sharded loop run, refinement counts included, its refinement
    regions captured with their collectives.
 
 Then a line with each path's ``label_rounds`` launches (fails where a path
 that runs its own front launched none, or any path ran a plain label
-round on the card), one JSON line listing every kernel (``ell_spmv``,
-``segment_sum``, ``mis_rounds``, ``coarse_eigh``, ``label_rounds`` and
-``set_if``, each with its launches by path), the card's name and power
-limit, and the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
+round on the card), a line with each path's ``bip_smooth`` launches and
+runs counted on the card (fails where a single-card path ran none, or
+ran the plain smoother on the card; the sharded paths run the plain one
+by configuration), one JSON line listing every kernel (``ell_spmv``,
+``segment_sum``, ``mis_rounds``, ``coarse_eigh``, ``label_rounds``,
+``set_if`` and ``bip_smooth``, each with its launches by path), the
+card's name and power limit, and the last line ``{"ok": true, "device":
+{...}}``.  Any failure raises and
 exits nonzero; without CUDA the script exits nonzero before printing
 any result.
 """
@@ -204,15 +215,20 @@ def emit(phase: str, **kv):
 
 def zero_counts():
     """Set the launch counts of ``segment_sum``, ``mis_rounds``,
-    ``coarse_eigh``, ``label_rounds`` and ``set_if`` to 0, and the count
-    of plain label-propagation rounds on a card tensor
-    (:func:`count_plain_rounds`)."""
+    ``coarse_eigh``, ``label_rounds``, ``bip_smooth`` and ``set_if`` to
+    0, the card's count of ``bip_smooth``'s runs too, and the counts of
+    plain label-propagation rounds and plain smoothing calls on a card
+    tensor (:func:`count_plain_rounds`, :func:`count_plain_smooth`)."""
     from otamg_torch import graphs
-    from otamg_torch.amg.kernels import coarse_eigh, label_rounds, mis_rounds
+    from otamg_torch.amg.kernels import (bip_smooth, bip_smooth_runs,
+                                         coarse_eigh, label_rounds,
+                                         mis_rounds)
     from otamg_torch.sparse.segment import segment_sum
 
     segment_sum.launches = mis_rounds.launches = coarse_eigh.launches = 0
     label_rounds.launches = count_plain_rounds.calls = 0
+    bip_smooth.launches = count_plain_smooth.calls = 0
+    bip_smooth_runs("cuda").zero_()
     graphs.cond_launches.clear()
 
 
@@ -232,14 +248,22 @@ def set_if_launches() -> int:
 
 
 def setup_counts() -> dict:
-    """The front's kernels' launches since :func:`zero_counts`, and the
-    plain rounds run on a card tensor (none on any path)."""
-    from otamg_torch.amg.kernels import coarse_eigh, label_rounds, mis_rounds
+    """The front's kernels' and the smoother's launches since
+    :func:`zero_counts` (``bip_smooth_runs``: the smoother kernel's runs
+    counted on the card, replays included), and the plain rounds and
+    smoothing calls run on a card tensor (none on any path but the
+    sharded ones, whose smoother is plain by configuration)."""
+    from otamg_torch.amg.kernels import (bip_smooth, bip_smooth_runs,
+                                         coarse_eigh, label_rounds,
+                                         mis_rounds)
 
     return dict(mis_rounds=mis_rounds.launches,
                 coarse_eigh=coarse_eigh.launches,
                 label_rounds=label_rounds.launches,
-                plain_label_rounds_on_card=count_plain_rounds.calls)
+                plain_label_rounds_on_card=count_plain_rounds.calls,
+                bip_smooth=bip_smooth.launches,
+                bip_smooth_runs=int(bip_smooth_runs("cuda")),
+                plain_bip_smooth_on_card=count_plain_smooth.calls)
 
 
 def count_plain_rounds():
@@ -260,6 +284,26 @@ def count_plain_rounds():
 
 
 count_plain_rounds.calls = 0
+
+
+def count_plain_smooth():
+    """Count the plain smoothing calls that ``_projected_smooth_bip``
+    makes on a card tensor (it launches the kernel there with no live
+    mesh: the count stays 0 on every path but the sharded ones) in
+    ``count_plain_smooth.calls``."""
+    from otamg_torch.amg import hierarchy
+
+    plain = hierarchy.bip_smooth_plain
+
+    def counted(lv, e, r, *a, **kw):
+        if r.is_cuda:
+            count_plain_smooth.calls += 1
+        return plain(lv, e, r, *a, **kw)
+
+    hierarchy.bip_smooth_plain = counted
+
+
+count_plain_smooth.calls = 0
 
 
 def count_refinement():
@@ -892,6 +936,8 @@ def run_numbers(res, before, sync, secs) -> dict:
         launches={k: d[k] for k in ("segment_sum", "mis_rounds",
                                     "coarse_eigh", "label_rounds",
                                     "plain_label_rounds_on_card",
+                                    "bip_smooth", "bip_smooth_runs",
+                                    "plain_bip_smooth_on_card",
                                     "set_if")})
 
 
@@ -970,9 +1016,10 @@ def phase_class1(dev):
         warm = (res, secs, reads, dict(LAST))
         emit("class1_500", run=label, **LAST,
              **held_to_class1_reference(500, res))
-    plain = launches["plain_label_rounds_on_card"]
+    plain = (launches["plain_label_rounds_on_card"]
+             + launches["plain_bip_smooth_on_card"])
     if plain or not all(v for k, v in launches.items()
-                        if k != "plain_label_rounds_on_card"):
+                        if not k.startswith("plain_")):
         raise AssertionError(f"the Class-1 solve left a kernel unlaunched or "
                              f"ran plain label rounds: {launches}")
     res, secs, reads = run_class1(1024, 1024, dev, opts)
@@ -1138,22 +1185,43 @@ def held_to_reference(size, res):
     return row
 
 
+def clone_level(lv):
+    """A copy of a level (a NamedTuple of tensors and of a plan)."""
+    return type(lv)(*(clone_level(f) if isinstance(f, tuple) else f.clone()
+                      for f in lv))
+
+
 class Recorder:
     """Inside a ``with`` block, the inputs of the first ``mis_rounds``
     call of each size (``mis``), the first ``coarse_eigh`` call of each
-    size (``eigh``), the first ``label_rounds`` call's mask (``mask``)
-    and the first 8 ``newton_front`` calls (``setup``: args and
-    keywords), cloned, where the package's modules look them up."""
+    size (``eigh``), the first ``label_rounds`` call's mask (``mask``),
+    the first 8 ``newton_front`` calls (``setup``: args and keywords)
+    and the first ``_projected_smooth_bip`` call of each ``(transpose,
+    e_is_zero, deflated)`` (``smooth``: the level, ``e``, ``r``,
+    ``smoth_it``, ``nseg``), cloned, where the package's modules look
+    them up."""
 
     def __enter__(self):
         from otamg_torch.amg import graph, hierarchy
         from otamg_torch.hybrid import solver
 
         self.mis, self.eigh, self.setup, self.mask = {}, {}, [], []
+        self.smooth = {}
         self.saved = [(graph, "mis_rounds"), (hierarchy, "coarse_eigh"),
-                      (solver, "newton_front"), (graph, "label_rounds")]
-        mis, eigh, setup, labels = (getattr(m, a) for m, a in self.saved)
+                      (solver, "newton_front"), (graph, "label_rounds"),
+                      (hierarchy, "_projected_smooth_bip")]
+        mis, eigh, setup, labels, smooth = (getattr(m, a)
+                                            for m, a in self.saved)
         keep = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
+
+        def smooth_rec(lv, e, r, smoth_it, transpose, nseg, deflated,
+                       e_is_zero):
+            key = (transpose, e_is_zero, deflated)
+            if key not in self.smooth:
+                self.smooth[key] = (clone_level(lv), e.clone(), r.clone(),
+                                    smoth_it, nseg)
+            return smooth(lv, e, r, smoth_it, transpose, nseg, deflated,
+                          e_is_zero)
 
         def mis_rec(*a, **kw):
             self.mis.setdefault(a[0].shape[0], tuple(map(keep, a[:5])))
@@ -1178,6 +1246,7 @@ class Recorder:
         hierarchy.coarse_eigh = eigh_rec
         solver.newton_front = setup_rec
         graph.label_rounds = labels_rec
+        hierarchy._projected_smooth_bip = smooth_rec
         return self
 
     def __exit__(self, *exc):
@@ -1649,6 +1718,224 @@ def label_checks(card, dev, masks):
     return rows
 
 
+# bip_smooth's tolerance, of the plain result's largest entry: sums in
+# another order (the CPU tests see up to 1e-13 (f64) and 1e-7 (f32,
+# deflated) of the norm between the two methods).
+SMOOTH_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+def smooth_bound(card, lv, smoth_it, deflated, e_is_zero):
+    """(bound ms, bound_by): what the call reads, once each (E; r, g,
+    labels, nsp and the plan's order, n + m each; Axi and xx where it is
+    not deflated, e where it is not zero; Exi1, Etxi2 and the plan's
+    offsets), and the result written once; 4 smoth_it m n operations at
+    the type's peak."""
+    from otamg_torch.diag.roofline import hbm_rate
+
+    E = lv.E
+    m, n = E.shape
+    N = n + m
+    item = E.element_size()
+    vecs = 2 + 2 * (not deflated) + (not e_is_zero) + 1   # + the result
+    nbytes = (m * n * item + N * (vecs * item + 8 + 1 + 4)
+              + (m + n) * item + 4 * lv.plan.offsets.numel())
+    t_bytes = nbytes / hbm_rate(card)
+    t_ops = 4 * smoth_it * m * n / _PEAK[E.dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def synthetic_level(m, n, kind, dtype, dev, seed=0):
+    """A bipartite level on the card as the setup makes one (components
+    in three blocks, ``empty`` or ``full``; ``g = bk1 qp2 + (kdiag +
+    a0diag) / tk`` with ``kdiag`` zero on the components of even root
+    label, ``Axi = A 1``), for the layouts' edges."""
+    from otamg_torch.amg.graph import connected_components_bipartite
+    from otamg_torch.amg.hierarchy import BipartiteLevel
+    from otamg_torch.sparse.segment import segment_plan
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = torch.float64
+    if kind == "empty":
+        E = torch.zeros(m, n, dtype=f64, device=dev)
+    elif kind == "full":
+        E = 0.5 + torch.rand(m, n, generator=gen, device=dev, dtype=f64)
+    else:
+        gr = torch.randint(0, 3, (m,), generator=gen, device=dev)
+        gc = torch.randint(0, 3, (n,), generator=gen, device=dev)
+        keep = (gr[:, None] == gc[None, :]) & (
+            torch.rand(m, n, generator=gen, device=dev) < 0.3)
+        E = torch.where(keep, 0.1 + torch.rand(m, n, generator=gen,
+                                               device=dev, dtype=f64), 0.0)
+    N = n + m
+    itk = torch.tensor(1 / 0.7, dtype=f64, device=dev)
+    labels = connected_components_bipartite(E)
+    near = labels[labels] % 2 == 0
+    qp2 = 0.5 + 1.5 * torch.rand(N, generator=gen, device=dev, dtype=f64)
+    kdiag = torch.where(near, 0.0, 0.1 + torch.rand(N, generator=gen,
+                                                    device=dev, dtype=f64))
+    g = 1e-3 * qp2 + (kdiag + torch.cat([E.sum(0), E.sum(1)])) * itk
+    seg = torch.zeros(N, dtype=f64, device=dev).index_add_(0, labels, kdiag)
+    nsp = seg[labels] == 0
+    Axi = g - itk * torch.cat([E.sum(0), E.sum(1)])
+    xx = torch.zeros(N, dtype=f64, device=dev).index_add_(0, labels, Axi)
+    xi = nsp.to(f64)
+    T = lambda t: t.to(dtype).contiguous()
+    return BipartiteLevel(T(E), T(g), T(itk), T(torch.zeros(n, m,
+                                                             device=dev)),
+                          labels, nsp, T(Axi), T(xx[labels]), T(E @ xi[:n]),
+                          T(E.T @ xi[n:]), segment_plan(labels, N, split=n))
+
+
+def layout_edges(dtype) -> tuple:
+    """The largest square level whose rows of ``E`` fit the blocks'
+    shared memory (layout 0) in ``dtype``, and the next size (layout
+    1)."""
+    from otamg_torch.amg.kernels import bip_smooth_layout
+
+    item = torch.tensor([], dtype=dtype).element_size()
+    k = 16
+    while bip_smooth_layout(k + 16, k + 16, 2 * k + 32, item)[0] == 0:
+        k += 16
+    while bip_smooth_layout(k + 1, k + 1, 2 * k + 2, item)[0] == 0:
+        k += 1
+    return k, k + 1
+
+
+def captured_replay(call):
+    """``call()``'s result from a replay of its capture (``graphs.
+    capture``, after a warm-up on the capture's stream)."""
+    from otamg_torch import graphs
+
+    out = torch.zeros_like(call())
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out.copy_(call())
+    torch.cuda.current_stream().wait_stream(side)
+    with graphs.capture(graph):
+        out.copy_(call())
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    del graph
+    return out
+
+
+def phase_bip_smooth(card, dev, recs, rec2):
+    """``bip_smooth`` (``csrc/bip_smooth.cu``) against ``bip_smooth_plain``
+    on the card: on the bipartite levels of the first Newton solves of
+    Class-1 500^2 and 1024^2 and Class-2 500^2 (10 sweeps) and of the
+    mixed Class-1 500^2 run (fp32, deflated), with the vectors of their
+    first pre-smoothing (``e`` zero) and post-smoothing (transposed)
+    calls, the other two orders on the 500^2 level, deflated in f64 there
+    too; and on synthetic levels at the layouts' edges (the largest
+    layout-0 square and the next size, in f64 and f32, and 2,048^2 f64 in
+    layout 2), an empty mask (every node its own component) and a full
+    one.  Each with its layout, the largest error against the plain
+    result's largest entry and its tolerance (:data:`SMOOTH_TOL`), equal
+    bits in two calls and between a captured replay and the eager call,
+    ``ms``, ``device_ms``, ``host_us``, the bound and its share, the plain
+    version's time and that of its ``2 smoth_it`` ``torch.mv`` calls
+    alone (``mv_ms``; no one library call computes a sweep)."""
+    from otamg_torch.amg.kernels import (bip_smooth, bip_smooth_layout,
+                                         bip_smooth_plain)
+
+    t0 = time.perf_counter()
+    with Recorder() as mixed:
+        run_class1(500, 500, dev, dataclasses.replace(class1_opts("float32"),
+                                                      maxit=1))
+    paths = {"class1_500": recs[500].smooth, "class1_1024": recs[1024].smooth,
+             "class2_500": rec2.smooth,
+             "mixed_500": mixed.smooth}
+    cases = {}
+    for path, calls in paths.items():
+        for (transpose, e_is_zero, deflated), call in calls.items():
+            name = (f"{path}_{'post' if transpose else 'pre'}"
+                    f"{'_deflated' if deflated else ''}")
+            cases[name] = (*call[:4], transpose, call[4], deflated,
+                           e_is_zero)
+    lv, e, r, _, _, nseg, _, _ = cases["class1_500_post"]
+    for transpose, e_is_zero in ((False, False), (True, True)):
+        cases[f"class1_500_t{int(transpose)}_z{int(e_is_zero)}"] = (
+            lv, e, r, 5, transpose, nseg, False, e_is_zero)
+    cases["class1_500_deflated_f64"] = (lv, e, r, 5, True, nseg, True, False)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    synth = []
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype is torch.float64 else "f32"
+        for k in layout_edges(dtype):
+            synth.append((f"edge_{k}_{tag}", k, k, "components", dtype))
+    synth += [("layout2_2048_f64", 2048, 2048, "components", torch.float64),
+              ("empty_500", 500, 500, "empty", torch.float64),
+              ("full_500", 500, 500, "full", torch.float64)]
+    for name, m, n, kind, dtype in synth:
+        lv = synthetic_level(m, n, kind, dtype, dev)
+        N = n + m
+        e = torch.randn(N, generator=gen, device=dev, dtype=torch.float64)
+        r = torch.randn(N, generator=gen, device=dev, dtype=torch.float64)
+        cases[name] = (lv, e.to(dtype), r.to(dtype), 5, False, N,
+                       dtype is torch.float32, False)
+    rows = {}
+    for name, args in cases.items():
+        lv, e, r, smoth_it, transpose, nseg, deflated, e_is_zero = args
+        m, n = lv.E.shape
+        dtype = lv.E.dtype
+        call = lambda: bip_smooth(*args)
+        got = call()
+        again = call()
+        want = bip_smooth_plain(*args)
+        replayed = captured_replay(call)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        rel = err / scale if scale else err
+        item = lv.E.element_size()
+        layout = bip_smooth_layout(m, n, nseg, item)[0]
+        bound_ms, bound_by = smooth_bound(card, lv, smoth_it, deflated,
+                                          e_is_zero)
+        ms = cuda_ms(call)
+        E = lv.E
+        x, y = r[:n].clone(), r[n:].clone()
+
+        def mvs():
+            for _ in range(smoth_it):
+                torch.mv(E, x)
+                torch.mv(E.T, y)
+
+        row = dict(shape=name, m=m, n=n, nseg=nseg,
+                   dtype=str(dtype).split(".")[-1], layout=layout,
+                   smoth_it=smoth_it, transpose=transpose, deflated=deflated,
+                   e_is_zero=e_is_zero, nsp=int(lv.nsp.sum()),
+                   components=int(torch.unique(lv.labels).numel()),
+                   max_abs_err=err, max_rel_err=rel, tol=SMOOTH_TOL[dtype],
+                   finite=bool(torch.isfinite(got).all()),
+                   equal_twice=bool(torch.equal(got, again)),
+                   replay_equal_eager=bool(torch.equal(replayed, got)),
+                   ms=ms, device_ms=graph_ms(call), host_us=host_us(call),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / ms,
+                   plain_ms=cuda_ms(lambda: bip_smooth_plain(*args), 10),
+                   mv_ms=cuda_ms(mvs, 10), library_ms=None)
+        emit("bip_smooth", **row)
+        if not (row["finite"] and rel <= row["tol"] and row["equal_twice"]
+                and row["replay_equal_eager"]):
+            raise AssertionError(f"bip_smooth {name} differs from its plain "
+                                 "version, is not finite or not "
+                                 "deterministic")
+        rows[name] = row
+    need = {"class1_500_pre", "class1_500_post", "class1_1024_pre",
+            "class2_500_pre", "mixed_500_pre_deflated",
+            "mixed_500_post_deflated"}
+    if not need <= set(rows) or rows["class2_500_pre"]["smoth_it"] != 10 \
+            or rows["mixed_500_pre_deflated"]["dtype"] != "float32":
+        raise AssertionError(f"bip_smooth: the recorded calls {sorted(rows)}")
+    emit("bip_smooth_checks", cases=len(rows),
+         layouts=sorted({r["layout"] for r in rows.values()}),
+         seconds=time.perf_counter() - t0)
+    return rows
+
+
 # The Class-1 sizes whose first Newton solve feeds the setup checks.
 SETUP_SIZES = (500, 1024)
 
@@ -1676,7 +1963,8 @@ def phase_setup_kernels(card, dev):
     masks = {f"class1_{size}": rec.mask[0] for size, rec in recs.items()}
     masks["class2_500"] = rec2.mask[0]
     return (mis_checks(card, dev, recs), eigh_checks(card, dev, recs),
-            label_checks(card, dev, masks), front_checks(dev, recs), recs)
+            label_checks(card, dev, masks), front_checks(dev, recs), recs,
+            rec2)
 
 
 def same_run(res, base) -> bool:
@@ -2551,39 +2839,72 @@ def dist_blocked_checks(dev, mesh, loops):
     return spmv, seg, setupk
 
 
+# The outer iterations of the sharded mixed loop run that the sharded
+# chunked run is held to bit for bit (of 55 to convergence): the loop's
+# collectives cost 0.1-0.4 host ms each at one rank.
+DIST_MIXED_OUTER = 15
+
+
 def dist_mixed_check(dev, mesh, chunked500):
     """(i): the chunked (``chunk=8``) driver's mixed Class-1 500x500 solve
-    on the sharded problem, at one rank, held bit for bit to the
-    unsharded chunked mixed run of phase 7 (``chunked500``: its result
-    and refinement counts): iterations, failures, SsN steps, every
-    objective and the refinement's counts, with the refinement's
-    regions captured under the mesh (its collectives inside) and no
-    correction solve op by op.  Returns its ``ell_spmv``, ``segment_sum``
-    and setup kernels' launches."""
+    on the sharded problem, at one rank, held to ``MIXED_REF`` and to the
+    unsharded chunked mixed run of phase 7 (``chunked500``: its result and
+    refinement counts) in converged, iterations and failures, with the
+    refinement's regions captured under the mesh (its collectives inside)
+    and no correction solve op by op; and, over the first
+    :data:`DIST_MIXED_OUTER` outer iterations, the sharded chunked run
+    bit for bit to the sharded loop run (iterations, failures, SsN steps,
+    every objective and the refinement's counts).  Under a live mesh the
+    smoother is the plain one by configuration, where the unsharded runs
+    launch the ``bip_smooth`` kernel, so the sharded trajectory equals
+    the unsharded one to rounding only (reported, not held).  Returns
+    the full run's ``ell_spmv``, ``segment_sum`` and setup kernels'
+    launches."""
     from otamg_torch.hybrid.solver import refine_graphs
     from otamg_torch.opt import solve_class1_chunked
 
     base, base_counts = chunked500
     refine_graphs.clear()
+    chunked = lambda q, oo: solve_class1_chunked(q, oo, chunk=8)
     (out, n_spmv, n_seg) = counted_launches(lambda: run_mixed(
-        1, 500, dev, lambda p, o: solve_class1_sharded(
-            p, o, mesh, lambda q, oo: solve_class1_chunked(q, oo, chunk=8))))
+        1, 500, dev, lambda p, o: solve_class1_sharded(p, o, mesh,
+                                                       chunked)))
     res, _, nums = out
+    setup = counted_launches.setup
     row = dict(driver="chunked", same_as_unsharded=same_run(res, base),
-               same_refine_counts=nums["refine_counts"] == base_counts,
+               same_refine_counts_as_unsharded=(nums["refine_counts"]
+                                                == base_counts),
+               same_counts_as_unsharded=(
+                   (res.converged, res.iters, res.fail_count)
+                   == (base.converged, base.iters, base.fail_count)),
                eager_collectives=counted_launches.eager,
                replayed_collectives=counted_launches.replayed,
                refine_graph_collectives=refine_graphs.captured_collectives,
-               segment_sum_launches=n_seg, **nums)
+               segment_sum_launches=n_seg, **nums,
+               **held_to_mixed_reference(1, 500, res))
+    # The blocked rounds under the mesh against the loop's, bit for bit.
+    short = lambda solve: run_mixed(
+        1, 500, dev, lambda p, o: solve_class1_sharded(
+            p, dataclasses.replace(o, maxit=DIST_MIXED_OUTER), mesh,
+            solve))
+    loop_res, loop_s, loop_nums = short(None)
+    blk_res, blk_s, blk_nums = short(chunked)
+    row.update(outer_held=DIST_MIXED_OUTER,
+               same_as_sharded_loop=same_run(blk_res, loop_res),
+               same_refine_counts_as_sharded_loop=(
+                   blk_nums["refine_counts"] == loop_nums["refine_counts"]),
+               sharded_loop_seconds=loop_s, sharded_chunked_seconds=blk_s)
     emit("dist_mixed_chunked_class1_500", **row)
-    if not (row["same_as_unsharded"] and row["same_refine_counts"]
+    if not (row["same_counts_as_unsharded"] and row["same_as_sharded_loop"]
+            and row["same_refine_counts_as_sharded_loop"]
             and nums["refine_captures"] == 2
             and refine_graphs.captured_collectives > 0
             and nums["eager_correction_solves"] == 0):
         raise AssertionError("sharded mixed chunked Class-1 500x500 differs "
-                             "from the unsharded run or its refinement "
+                             "from the unsharded run in its counts or from "
+                             "the sharded loop run, or its refinement "
                              "graphs hold no collective")
-    return n_spmv, n_seg, counted_launches.setup
+    return n_spmv, n_seg, setup
 
 
 def solve_class1_sharded(prob, opts, mesh, solve=None):
@@ -3045,6 +3366,10 @@ def phase_roofline(card, res, secs):
          **roofline_report(model, secs, torch.device("cuda")))
 
 
+# The keys of a path's launches in ``setupk``.
+SETUP_KEYS = ("mis_rounds", "coarse_eigh", "label_rounds",
+              "plain_label_rounds_on_card", "bip_smooth", "bip_smooth_runs",
+              "plain_bip_smooth_on_card")
 # The paths whose runs launch the labels kernel themselves.
 LABEL_PATHS = ("class1", "class2", "mixed", "class1_500_chunked",
                "class1_1024_chunked", "class2_500_chunked", "dist_class1",
@@ -3072,13 +3397,15 @@ def main() -> int:
     build_s = cuda_build.build_all(verbose=True)
     emit("build", seconds=build_s)
     count_plain_rounds()
+    count_plain_smooth()
     count_refinement()
 
     t0 = time.perf_counter()
     rows = phase_kernels(card, dev)
     seg_rows = phase_segment_sum(card, dev)
-    mis_rows, eigh_rows, label_rows, _, recs = phase_setup_kernels(card,
-                                                                    dev)
+    mis_rows, eigh_rows, label_rows, _, recs, rec2 = phase_setup_kernels(
+        card, dev)
+    smooth_rows = phase_bip_smooth(card, dev, recs, rec2)
     emit("kernel_checks", seconds=time.perf_counter() - t0)
     # Each path's launches: counts set to 0 just before it, read after.
     seg, setupk = {}, {}
@@ -3103,9 +3430,7 @@ def main() -> int:
                                                         (2, 500): warm2})
     for name, n in graph_launches.items():
         seg[name] = n["segment_sum"]
-        setupk[name] = {k: n[k] for k in ("mis_rounds", "coarse_eigh",
-                                          "label_rounds",
-                                          "plain_label_rounds_on_card")}
+        setupk[name] = {k: n[k] for k in SETUP_KEYS}
     condk = {name: n["set_if"] for name, n in graph_launches.items()}
     emit("setup_graph", seconds=time.perf_counter() - t0)
     f64 = {(1,) + k: v for k, v in runs1.items()}
@@ -3116,9 +3441,7 @@ def main() -> int:
     setupk["mixed"] = setup_counts()
     for name, n in mixed_launches.items():
         seg[name] = n["segment_sum"]
-        setupk[name] = {k: n[k] for k in ("mis_rounds", "coarse_eigh",
-                                          "label_rounds",
-                                          "plain_label_rounds_on_card")}
+        setupk[name] = {k: n[k] for k in SETUP_KEYS}
     condk.update({name: n["set_if"] for name, n in mixed_launches.items()})
     emit("mixed_all", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
@@ -3154,11 +3477,33 @@ def main() -> int:
     if unlabelled or plain:
         raise AssertionError(f"paths without a label_rounds launch "
                              f"{unlabelled} or with plain rounds {plain}")
+    # Every single-card path ran the smoother kernel (the warm and fused
+    # blocked runs in the AMG block's replays, counted on the card) and
+    # no plain smoother on the card; the sharded paths run the plain one
+    # by configuration.
+    single = [k for k in setupk if not k.startswith("dist_")
+              and k != "sparse_setup"]
+    unsmoothed = [k for k in single if not setupk[k]["bip_smooth_runs"]]
+    plain_smooth = {k: setupk[k]["plain_bip_smooth_on_card"] for k in single
+                    if setupk[k]["plain_bip_smooth_on_card"]}
+    emit("bip_smooth_paths",
+         launches={k: v["bip_smooth"] for k, v in setupk.items()},
+         runs_on_card={k: v["bip_smooth_runs"] for k, v in setupk.items()},
+         plain_on_card={k: v["plain_bip_smooth_on_card"]
+                        for k, v in setupk.items()},
+         plain_by_configuration=sorted(k for k in setupk
+                                       if k.startswith("dist_")),
+         unsmoothed=unsmoothed, plain_single_card=plain_smooth)
+    if unsmoothed or plain_smooth:
+        raise AssertionError(f"single-card paths without a bip_smooth run "
+                             f"{unsmoothed} or with the plain smoother on "
+                             f"the card {plain_smooth}")
     main_row = rows[("grid128", torch.float64)]
     seg_row = seg_rows["components1000_L500"]
     mis_row = mis_rows["class1_500_c500"]
     eigh_row = eigh_rows[("coarsest level", 123, torch.float64)]
     label_row = label_rows["class1_500"]
+    smooth_row = smooth_rows["class1_500_pre"]
     print(json.dumps({"kernels": [{
         "name": "ell_spmv", "route": "cuda",
         "source": "otamg_torch/csrc/ell_spmv.cu",
@@ -3229,7 +3574,24 @@ def main() -> int:
         "max_abs_err": cond_row["max_abs_err"], "ms": cond_row["ms"],
         "plain_ms": cond_row["plain_ms"], "bound_ms": cond_row["bound_ms"],
         "bound_by": cond_row["bound_by"], "library_ms": None,
-        "skip_ms": cond_row["skip_ms"], "n": cond_row["n"]}]}))
+        "skip_ms": cond_row["skip_ms"], "n": cond_row["n"]}, {
+        "name": "bip_smooth", "route": "cuda",
+        "source": "otamg_torch/csrc/bip_smooth.cu",
+        "replaces": "otamg/amg/hierarchy.py:320 (XLA's fusion of "
+                    "_projected_smooth_bip, two lax.fori_loops; no Pallas "
+                    "kernel)",
+        "launches": setupk["class1"]["bip_smooth"],
+        "launches_by_path": {k: v["bip_smooth"] for k, v in setupk.items()},
+        "runs_on_card_by_path": {k: v["bip_smooth_runs"]
+                                 for k, v in setupk.items()},
+        "max_abs_err": smooth_row["max_abs_err"], "ms": smooth_row["ms"],
+        "plain_ms": smooth_row["plain_ms"],
+        "bound_ms": smooth_row["bound_ms"],
+        "bound_by": smooth_row["bound_by"], "library_ms": None,
+        "mv_ms": smooth_row["mv_ms"],
+        "device_ms": smooth_row["device_ms"],
+        "host_us": smooth_row["host_us"], "layout": smooth_row["layout"],
+        "shape": smooth_row["shape"]}]}))
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@
   ``Ae = diag(g) - E/tk`` on the bipartite node set (q-side then p-side),
   with ``E`` the ``(m, n)`` masked-dense edge-weight matrix; matvecs, the
   block Gauss-Seidel smoother and the level-1 ideal interpolation are
-  GEMVs/GEMMs on ``E``.  The generic hierarchy instead starts from a dense
+  GEMVs/GEMMs on ``E``.  On a card every smoothing call is one launch
+  of ``csrc/bip_smooth.cu`` (:mod:`otamg_torch.amg.kernels`).  The
+  generic hierarchy instead starts from a dense
   level or, for a sparse operator, a :class:`CSRLevel` whose matvecs run
   the ELL SpMV kernel.  The sparse-setup hierarchy
   (:func:`setup_hierarchy_sparse`) adds :class:`AggCSRLevel` levels
@@ -64,7 +66,8 @@ import torch
 
 from otamg_torch import random as jr
 from otamg_torch.amg.graph import mis_split, segment_sum, strength_dense
-from otamg_torch.amg.kernels import coarse_eigh
+from otamg_torch.amg.kernels import (bip_smooth, bip_smooth_plain,
+                                     coarse_eigh)
 from otamg_torch.config import AMGOptions, Cycle
 from otamg_torch.device import fetch
 from otamg_torch.dist import api
@@ -73,7 +76,7 @@ from otamg_torch.graphs import (AMG_CYCLES, REPAIRS, GraphCache, cond_counts,
                                 when)
 from otamg_torch.krylov.pcg import pcg
 from otamg_torch.sparse.kernels import ell_spmv
-from otamg_torch.sparse.segment import SegmentPlan, segment_plan, segment_sum2
+from otamg_torch.sparse.segment import SegmentPlan, segment_plan
 
 
 class BipartiteLevel(NamedTuple):
@@ -341,81 +344,17 @@ def _projected_smooth_bip(lv: BipartiteLevel, e, r, smoth_it: int,
                           transpose: bool, nseg: int, deflated: bool,
                           e_is_zero: bool):
     """Fused form of :func:`_projected_smooth` for the bipartite fine
-    level, the solver's hot loop.  The edge products ``u = E e1`` and
-    ``w = E^T e2`` are carried across sweeps and updated from each
-    sweep's corrections, so a sweep does exactly the two directed
-    products its Gauss-Seidel order forces.  ``e_is_zero`` marks the
-    pre-smoothing entry, where the carried products start at zero.
-    ``deflated`` projects each component mean out after the sweep, and
-    the carried products take the projection through ``Exi1``/``Etxi2``
-    (``E`` has no edge across components).  Each per-component sum over
-    the two halves is one :func:`segment_sum2` over the level's pair
-    plan."""
-    n = lv.W.shape[0]
-    m = lv.g.shape[0] - n
-    itk = lv.inv_tk
-    Emv = lambda x: api.row_matvec(lv.E, x)     # E x, (m,)
-    Etmv = lambda y: api.row_rmatvec(lv.E, y)   # E^T y, (n,)
-    g1d, g2d = lv.g[:n], lv.g[n:]
-    r1, r2 = r[:n], r[n:]
-    lab1, lab2 = lv.labels[:n], lv.labels[n:]
-    nsp1, nsp2 = lv.nsp[:n], lv.nsp[n:]
-    xi1 = nsp1.to(r.dtype)
-    xi2 = nsp2.to(r.dtype)
-    if e_is_zero:
-        e1 = torch.zeros(n, dtype=r.dtype, device=r.device)
-        e2 = torch.zeros(m, dtype=r.dtype, device=r.device)
-        u = torch.zeros(m, dtype=r.dtype, device=r.device)
-        w = torch.zeros(n, dtype=r.dtype, device=r.device)
-    else:
-        e1, e2 = e[:n], e[n:]
-        w, u = api.row_rmatvec(lv.E, e2), api.row_matvec(lv.E, e1)
-
-    def directed(gp1, gp2):
-        """One Gauss-Seidel block sweep: ``(d1, d2, E d1, E^T d2)``."""
-        if not transpose:
-            d1 = gp1 / g1d
-            t = Emv(d1)
-            d2 = (gp2 + itk * t) / g2d
-            tw = Etmv(d2)
-        else:
-            d2 = gp2 / g2d
-            tw = Etmv(d2)
-            d1 = (gp1 + itk * tw) / g1d
-            t = Emv(d1)
-        return d1, d2, t, tw
-
-    if deflated:
-        cnt = segment_sum2(xi1, xi2, lv.labels, nseg, lv.plan)
-        safe_cnt = torch.where(cnt > 0, cnt, 1.0)
-        for _ in range(smoth_it):
-            d1, d2, t, tw = directed(r1 - g1d * e1 + itk * w,
-                                     r2 - g2d * e2 + itk * u)
-            e1, e2 = e1 + d1, e2 + d2
-            mean = segment_sum2(e1 * xi1, e2 * xi2, lv.labels, nseg,
-                                lv.plan) / safe_cnt
-            m1 = torch.where(nsp1, mean[lab1], 0.0)
-            m2 = torch.where(nsp2, mean[lab2], 0.0)
-            e1, e2 = e1 - xi1 * m1, e2 - xi2 * m2
-            u = u + t - m2 * lv.Exi1
-            w = w + tw - m1 * lv.Etxi2
-        return torch.cat([e1, e2])
-    xx1, xx2 = lv.xx[:n], lv.xx[n:]
-    sxx1 = torch.where(torch.abs(xx1) > 0, xx1, 1.0)
-    sxx2 = torch.where(torch.abs(xx2) > 0, xx2, 1.0)
-    Axi1, Axi2 = lv.Axi[:n], lv.Axi[n:]
-    for _ in range(smoth_it):
-        gg1 = r1 - g1d * e1 + itk * w
-        gg2 = r2 - g2d * e2 + itk * u
-        xig = segment_sum2(gg1 * xi1, gg2 * xi2, lv.labels, nseg, lv.plan)
-        c1 = torch.where(nsp1, xig[lab1] / sxx1, 0.0)
-        c2 = torch.where(nsp2, xig[lab2] / sxx2, 0.0)
-        d1, d2, t, tw = directed(gg1 - Axi1 * c1, gg2 - Axi2 * c2)
-        e1 = e1 + xi1 * c1 + d1
-        e2 = e2 + xi2 * c2 + d2
-        u = u + c2 * lv.Exi1 + t
-        w = w + c1 * lv.Etxi2 + tw
-    return torch.cat([e1, e2])
+    level, the solver's hot loop (:func:`~otamg_torch.amg.kernels.
+    bip_smooth_plain` says how).  On a card with no live mesh every call
+    is one launch of ``csrc/bip_smooth.cu``
+    (:func:`~otamg_torch.amg.kernels.bip_smooth`); on the CPU, and under
+    a live mesh by configuration (``E`` is this rank's rows and its
+    products carry collectives), the torch ops."""
+    if api.live_mesh() is None:
+        return bip_smooth(lv, e, r, smoth_it, transpose, nseg, deflated,
+                          e_is_zero)
+    return bip_smooth_plain(lv, e, r, smoth_it, transpose, nseg, deflated,
+                            e_is_zero)
 
 
 # ---------------------------------------------------------------------------
@@ -904,6 +843,26 @@ def _gen_tape(num_levels: int, gamma: int) -> list[tuple[str, int]]:
     return ops
 
 
+def bip_residual_restrict(lv: BipartiteLevel, r: torch.Tensor,
+                          e: torch.Tensor) -> torch.Tensor:
+    """The cycle's level-0 residual ``r - A e`` restricted to level 2
+    through ``P = [W; I]``."""
+    rr = r - bip_matvec(lv, e)
+    n = lv.W.shape[0]
+    return rr[n:] + api.row_matvec(lv.W.T, rr[:n])
+
+
+def bip_prolong(lv: BipartiteLevel, ec: torch.Tensor) -> torch.Tensor:
+    """Level 2's correction prolonged to the bipartite level: ``[W ec;
+    ec]``."""
+    return torch.cat([api.row_rmatvec(lv.W.T, ec), ec])
+
+
+def deep_apply(deep_D: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The fused deep tape (``fuse_deep``): one GEMV with its matrix."""
+    return deep_D @ r
+
+
 def _coarse_solve(lv, r, nseg: int, deflated: bool, coarse_retol: float,
                   coarse_maxit: int, coarse_direct: bool):
     """Coarsest-level solve: the spectrally filtered direct solve from the
@@ -960,9 +919,6 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
                                      transpose, nseg, deflated)
 
         def restrict(l, rr):
-            if l == 0 and bip0:
-                n = lv1.W.shape[0]
-                return rr[n:] + api.row_matvec(lv1.W.T, rr[:n])
             child = levels[l + 1]
             if l == 0 and halo0:
                 # This rank's rows: their block sums, gathered, or their
@@ -980,7 +936,7 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
 
         def prolong(l, ec):
             if l == 0 and bip0:
-                return torch.cat([api.row_rmatvec(lv1.W.T, ec), ec])
+                return bip_prolong(lv1, ec)
             child = levels[l + 1]
             if l == 0 and halo0:
                 if isinstance(child, AggCSRLevel):
@@ -1002,7 +958,9 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
                 es[l] = lvl_smooth(l, es[l], rs[l], False,
                                    e_is_zero=(l == 0))
             elif kind == "down":
-                rs[l + 1] = restrict(l, rs[l] - lvl_matvec(l, es[l]))
+                rs[l + 1] = (bip_residual_restrict(lv1, rs[0], es[0])
+                             if l == 0 and bip0 else
+                             restrict(l, rs[l] - lvl_matvec(l, es[l])))
                 es[l + 1] = torch.zeros_like(es[l + 1])
             elif kind == "up":
                 es[l] = lvl_smooth(l, es[l] + prolong(l, es[l + 1]), rs[l],
@@ -1016,7 +974,7 @@ def make_cycle(num_dense: int, smoth_it: int, gamma: int, nseg: int,
             # The whole deep tape is the precomputed linear map deep_D.
             run("pre", 0)
             run("down", 0)
-            es[1] = deep_D @ rs[1]
+            es[1] = deep_apply(deep_D, rs[1])
             run("up", 0)
         else:
             for kind, l in tape:

@@ -30,12 +30,26 @@
   Every step is a minimum or a gather of integers, so the kernel gives
   the plain loop's labels and round count bit for bit.
 
+* :func:`bip_smooth` — every sweep of one call of the bipartite level's
+  kernel-projected block Gauss-Seidel smoother (the hot loop of every AMG
+  cycle), in one launch of ``otamg_torch/csrc/bip_smooth.cu``: the Hopper
+  form of XLA's fusion of ``otamg/amg/hierarchy.py::
+  _projected_smooth_bip``, whose torch-op form
+  (:func:`bip_smooth_plain`) is ~39 launches a sweep.  A cluster of 16
+  blocks splits the two products a sweep over the rows of ``E``, with
+  ``E``'s rows in the blocks' shared memory or read from global memory
+  (:func:`bip_smooth_layout`; ``tests/bip_smooth_steps.py`` is the same
+  method in torch ops).  Its sums run in a fixed order of its own: it
+  agrees with the plain version to rounding, and with itself bit for
+  bit.
+
 None is a Pallas kernel of the JAX package: they replace XLA
 operations, so that the whole front of a Newton solve can run as one
-CUDA graph.  On a CPU tensor each wrapper runs its plain version; on a
-CUDA tensor it launches its kernel (built at first use, see
-:mod:`otamg_torch.cuda_build`) or raises.  ``mis_rounds.launches``,
-``coarse_eigh.launches`` and ``label_rounds.launches`` count the
+CUDA graph and an AMG cycle in a few launches.  On a CPU tensor each
+wrapper runs its plain version; on a CUDA tensor it launches its kernel
+(built at first use, see :mod:`otamg_torch.cuda_build`) or raises.
+``mis_rounds.launches``, ``coarse_eigh.launches``,
+``label_rounds.launches`` and ``bip_smooth.launches`` count the
 launches.
 """
 
@@ -48,6 +62,7 @@ import struct
 import torch
 
 from otamg_torch.dist import api
+from otamg_torch.sparse.segment import segment_sum2
 
 _CODE = {torch.float32: 0, torch.float64: 1}
 # The largest dynamic shared memory a block may opt into on Hopper.
@@ -373,3 +388,209 @@ def label_rounds(E: torch.Tensor, max_rounds: int = 64):
 
 
 label_rounds.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The bipartite smoother
+# ---------------------------------------------------------------------------
+
+
+def bip_smooth_plain(lv, e, r, smoth_it: int, transpose: bool, nseg: int,
+                     deflated: bool, e_is_zero: bool):
+    """``smoth_it`` sweeps of the kernel-projected block Gauss-Seidel
+    smoother on the bipartite level ``lv`` (a ``BipartiteLevel``) in
+    torch ops: the fused form of ``hierarchy._projected_smooth`` there,
+    the solver's hot loop (``otamg/amg/hierarchy.py::
+    _projected_smooth_bip``).  The edge products ``u = E e1`` and
+    ``w = E^T e2`` are carried across sweeps and updated from each
+    sweep's corrections, so a sweep does exactly the two directed
+    products its Gauss-Seidel order forces.  ``e_is_zero`` marks the
+    pre-smoothing entry, where the carried products start at zero.
+    ``deflated`` projects each component mean out after the sweep, and
+    the carried products take the projection through ``Exi1``/``Etxi2``
+    (``E`` has no edge across components).  Each per-component sum over
+    the two halves is one :func:`segment_sum2` over the level's pair
+    plan."""
+    n = lv.W.shape[0]
+    m = lv.g.shape[0] - n
+    itk = lv.inv_tk
+    Emv = lambda x: api.row_matvec(lv.E, x)     # E x, (m,)
+    Etmv = lambda y: api.row_rmatvec(lv.E, y)   # E^T y, (n,)
+    g1d, g2d = lv.g[:n], lv.g[n:]
+    r1, r2 = r[:n], r[n:]
+    lab1, lab2 = lv.labels[:n], lv.labels[n:]
+    nsp1, nsp2 = lv.nsp[:n], lv.nsp[n:]
+    xi1 = nsp1.to(r.dtype)
+    xi2 = nsp2.to(r.dtype)
+    if e_is_zero:
+        e1 = torch.zeros(n, dtype=r.dtype, device=r.device)
+        e2 = torch.zeros(m, dtype=r.dtype, device=r.device)
+        u = torch.zeros(m, dtype=r.dtype, device=r.device)
+        w = torch.zeros(n, dtype=r.dtype, device=r.device)
+    else:
+        e1, e2 = e[:n], e[n:]
+        w, u = api.row_rmatvec(lv.E, e2), api.row_matvec(lv.E, e1)
+
+    def directed(gp1, gp2):
+        """One Gauss-Seidel block sweep: ``(d1, d2, E d1, E^T d2)``."""
+        if not transpose:
+            d1 = gp1 / g1d
+            t = Emv(d1)
+            d2 = (gp2 + itk * t) / g2d
+            tw = Etmv(d2)
+        else:
+            d2 = gp2 / g2d
+            tw = Etmv(d2)
+            d1 = (gp1 + itk * tw) / g1d
+            t = Emv(d1)
+        return d1, d2, t, tw
+
+    if deflated:
+        cnt = segment_sum2(xi1, xi2, lv.labels, nseg, lv.plan)
+        safe_cnt = torch.where(cnt > 0, cnt, 1.0)
+        for _ in range(smoth_it):
+            d1, d2, t, tw = directed(r1 - g1d * e1 + itk * w,
+                                     r2 - g2d * e2 + itk * u)
+            e1, e2 = e1 + d1, e2 + d2
+            mean = segment_sum2(e1 * xi1, e2 * xi2, lv.labels, nseg,
+                                lv.plan) / safe_cnt
+            m1 = torch.where(nsp1, mean[lab1], 0.0)
+            m2 = torch.where(nsp2, mean[lab2], 0.0)
+            e1, e2 = e1 - xi1 * m1, e2 - xi2 * m2
+            u = u + t - m2 * lv.Exi1
+            w = w + tw - m1 * lv.Etxi2
+        return torch.cat([e1, e2])
+    xx1, xx2 = lv.xx[:n], lv.xx[n:]
+    sxx1 = torch.where(torch.abs(xx1) > 0, xx1, 1.0)
+    sxx2 = torch.where(torch.abs(xx2) > 0, xx2, 1.0)
+    Axi1, Axi2 = lv.Axi[:n], lv.Axi[n:]
+    for _ in range(smoth_it):
+        gg1 = r1 - g1d * e1 + itk * w
+        gg2 = r2 - g2d * e2 + itk * u
+        xig = segment_sum2(gg1 * xi1, gg2 * xi2, lv.labels, nseg, lv.plan)
+        c1 = torch.where(nsp1, xig[lab1] / sxx1, 0.0)
+        c2 = torch.where(nsp2, xig[lab2] / sxx2, 0.0)
+        d1, d2, t, tw = directed(gg1 - Axi1 * c1, gg2 - Axi2 * c2)
+        e1 = e1 + xi1 * c1 + d1
+        e2 = e2 + xi2 * c2 + d2
+        u = u + c2 * lv.Exi1 + t
+        w = w + c1 * lv.Etxi2 + tw
+    return torch.cat([e1, e2])
+
+
+# csrc/bip_smooth.cu's cluster size and block width.
+BIP_BLOCKS = 16
+_BIP_THREADS = 512
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def bip_smooth_layout(m: int, n: int, nseg: int, itemsize: int) -> tuple:
+    """Where ``csrc/bip_smooth.cu`` keeps an ``(m, n)`` level of
+    ``itemsize``-byte values summed into ``nseg`` components: ``(layout,
+    rows a block, shared bytes, workspace bytes, state bytes)``.  One
+    cluster of :data:`BIP_BLOCKS` blocks; each owns ``rows = ceil(m /
+    16)`` rows of ``E`` (the last blocks may own fewer or none) and keeps
+    the whole state: ``e``, the carried products, the sweep's direction
+    and the scan's prefixes (``n + m`` values each), two sums a component,
+    the exchanged shares of ``E^T y`` (two buffers of ``n``) and rows'
+    values (two of ``2 rows``), the scan's 512 + 16 carries, 16 ints and
+    a flag byte a node.  Layout 0 adds the block's rows of ``E`` to its
+    shared memory (500^2 in f64 and f32), layout 1 reads ``E`` from global
+    memory (1024^2), layout 2 keeps each block's state in a global
+    workspace too (``n + m`` past ~3,900 in f64, ~7,800 in f32)."""
+    rows = -(-m // BIP_BLOCKS)
+    N = n + m
+    vals = 4 * N + 2 * nseg + 2 * n + 4 * rows + _BIP_THREADS + 16
+    state = _align16(_align16(vals * itemsize) + 4 * 16 + N)
+    panel = _align16(rows * n * itemsize)
+    if panel + state <= SMEM_MAX:
+        return 0, rows, panel + state, 0, state
+    if state <= SMEM_MAX:
+        return 1, rows, state, 0, state
+    return 2, rows, 0, BIP_BLOCKS * state, state
+
+
+def bip_smooth(lv, e, r, smoth_it: int, transpose: bool, nseg: int,
+               deflated: bool, e_is_zero: bool):
+    """:func:`bip_smooth_plain`'s result; on a card one launch of
+    ``csrc/bip_smooth.cu`` for all ``smoth_it`` sweeps, in the layout
+    :func:`bip_smooth_layout` gives.  The level's tensors, ``r`` and
+    (unless ``e_is_zero``) ``e`` are contiguous, of one dtype (f32 or
+    f64) and on one card; ``labels`` int64 in ``[0, nseg)``, ``nsp``
+    bool, the pair plan's ``order`` and ``offsets`` int32 over ``nseg``
+    components.  ``inv_tk`` is read on the card only.  Its sums are not
+    the plain version's bits: each is taken in a fixed order of its own,
+    the same on every call."""
+    if not r.is_cuda:
+        return bip_smooth_plain(lv, e, r, smoth_it, transpose, nseg,
+                                deflated, e_is_zero)
+    E = lv.E
+    dt = r.dtype
+    m, n = E.shape if E.dim() == 2 else (0, 0)
+    N = n + m
+    dev = r.get_device()
+    vecs = (r, lv.g, lv.Axi, lv.xx) + (() if e_is_zero else (e,))
+    tensors = (E, lv.inv_tk, lv.Exi1, lv.Etxi2, lv.labels, lv.nsp,
+               lv.plan.order, lv.plan.offsets, *vecs)
+    ok = (dt in _CODE and m > 0 and n > 0 and nseg > 0 and smoth_it >= 0
+          and all(t.dtype is dt for t in (E, lv.inv_tk, lv.Exi1, lv.Etxi2,
+                                          *vecs))
+          and all(t.shape == (N,) for t in (*vecs, lv.labels, lv.nsp,
+                                            lv.plan.order))
+          and lv.inv_tk.shape == () and lv.Exi1.shape == (m,)
+          and lv.Etxi2.shape == (n,) and lv.labels.dtype is torch.int64
+          and lv.nsp.dtype is torch.bool
+          and lv.plan.order.dtype is torch.int32
+          and lv.plan.offsets.dtype is torch.int32
+          and lv.plan.offsets.shape == (nseg + 1,)
+          and all(t.is_cuda and t.get_device() == dev and t.is_contiguous()
+                  for t in tensors))
+    if not ok:
+        raise ValueError("bip_smooth: a bipartite level with E (m, n), m, "
+                         "n > 0, its vectors, r and e (n + m,) of one "
+                         "dtype (f32 or f64), int64 labels, bool nsp, an "
+                         "int32 pair plan over nseg > 0 components, "
+                         "contiguous, on one card")
+    layout, rows, smem, nws, state = bip_smooth_layout(
+        m, n, nseg, E.element_size())
+    out = torch.empty_like(r)
+    ws = (torch.empty(nws, dtype=torch.uint8, device=r.device) if nws
+          else None)
+    _launch("bip_smooth", "=30q", E.data_ptr(), lv.g.data_ptr(),
+            r.data_ptr(), 0 if e_is_zero else e.data_ptr(),
+            lv.inv_tk.data_ptr(), lv.labels.data_ptr(), lv.nsp.data_ptr(),
+            lv.Axi.data_ptr(), lv.xx.data_ptr(), lv.Exi1.data_ptr(),
+            lv.Etxi2.data_ptr(), lv.plan.order.data_ptr(),
+            lv.plan.offsets.data_ptr(), out.data_ptr(),
+            0 if ws is None else ws.data_ptr(), m, n, nseg, smoth_it,
+            int(transpose), int(deflated), int(e_is_zero), layout, rows,
+            smem, state, _bound("bip_smooth")[2](dev), dev, _CODE[dt],
+            bip_smooth_runs(r.device).data_ptr())
+    bip_smooth.launches += 1
+    return out
+
+
+bip_smooth.launches = 0
+_RUNS: dict = {}
+
+
+def bip_smooth_runs(device) -> torch.Tensor:
+    """The card's count of :func:`bip_smooth`'s kernel runs on
+    ``device`` (int64, 0-d): the kernel adds 1 at each run, so the runs
+    of a captured graph's replays and of the conditional bodies that run
+    are counted too, where ``bip_smooth.launches`` counts the wrapper's
+    launches.  Made at the first call, which cannot be inside a capture
+    (a region's warm-up runs first); ``.zero_()`` resets it."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    runs = _RUNS.get(dev)
+    if runs is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("bip_smooth: the first call is inside a "
+                               "CUDA-graph capture")
+        runs = _RUNS[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+    return runs
